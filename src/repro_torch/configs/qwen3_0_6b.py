@@ -1,0 +1,18 @@
+"""qwen3-0.6b — qk_norm, GQA [hf:Qwen/Qwen3-8B family; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-0.6b",
+    family="dense",
+    n_layers=28,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=3072,
+    vocab_size=151936,
+    head_dim=128,            # qwen3 decouples head_dim from d_model/n_heads
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    source="hf:Qwen/Qwen3-0.6B",
+))

@@ -7,6 +7,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import _param_shapes
+from repro_torch.models.common import unflatten_paths
+
 
 def from_reference(params_np: dict, traces_np: dict,
                    device="cpu") -> tuple[dict, dict]:
@@ -16,3 +19,24 @@ def from_reference(params_np: dict, traces_np: dict,
     return tuple({k: torch.from_numpy(np.array(v, copy=True)).to(device)
                   for k, v in tree.items()}
                  for tree in (params_np, traces_np))
+
+
+def params_from_reference(flat: dict, cfg, device="cpu") -> dict:
+    """The reference's model params (its ``flatten_paths`` dict, as numpy)
+    as this package's nested dict of float32 tensors on `device`.  The
+    keys must equal ``configs.base._param_shapes(cfg)`` exactly, and every
+    shape must match; values are unchanged."""
+    shapes = _param_shapes(cfg)
+    if set(flat) != set(shapes):
+        raise ValueError(f"params_from_reference: keys differ from "
+                         f"_param_shapes: missing "
+                         f"{sorted(set(shapes) - set(flat))}, extra "
+                         f"{sorted(set(flat) - set(shapes))}")
+    out = {}
+    for k, shape in shapes.items():
+        a = np.asarray(flat[k], dtype=np.float32)
+        if a.shape != tuple(shape):
+            raise ValueError(f"params_from_reference: {k} has shape "
+                             f"{a.shape}, want {tuple(shape)}")
+        out[k] = torch.from_numpy(a.copy()).to(device)
+    return unflatten_paths(out)

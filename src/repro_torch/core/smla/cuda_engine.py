@@ -11,10 +11,8 @@ final counters, ``served``, ``c_finish``, ``c_inst`` and ``chunks_run``;
 `engine._metrics` — the same function the plain version ends in — turns
 them into the metrics dict in torch on the card.
 
-Build: route (b) — ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes``, at first use, into
-``build/repro_torch_kernels/`` (keyed by a hash of the sources and
-flags).  No PyTorch headers are compiled, so a build takes seconds.
+Build: route (b), by `repro_torch._build` — ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``, at first use.
 
 Dispatch: `sim_cell_blocks` runs the kernel for CUDA tensors and the plain
 PyTorch version (`engine._sim_core`) for CPU tensors; it never falls back
@@ -25,19 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
 
+from repro_torch._build import bind, compile_library, nvcc, stream_ptr
 from repro_torch.core.smla import engine
 
-CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 KERNEL_SOURCES = ("smla_cycle.cuh", "smla_engine.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -57,75 +49,23 @@ TRACE_FIELDS = ("rank", "bank", "row", "wr")
 DIM_FIELDS = ("N", "C", "M", "R", "B", "Wd", "horizon", "chunk", "k_max",
               "mshr_window", "q_size", "wq_hi", "wq_lo")
 
-#: where built libraries go: ``build/repro_torch_kernels`` at the root of
-#: the checkout
-BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch_kernels"
 
-
-def compile_library(compiler: str, flags, sources, name: str) -> pathlib.Path:
-    """Compile `sources` (names under ``csrc/``; the first non-header is
-    the translation unit) into ``BUILD_DIR/<name>-<hash>.so`` unless it
-    is already there.  The hash covers every source and the flags, so an
-    edited source rebuilds.  Raises ``RuntimeError`` with the compiler's
-    output on failure."""
-    h = hashlib.sha256(" ".join((compiler,) + tuple(flags)).encode())
-    for s in sources:
-        h.update((CSRC / s).read_bytes())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    unit = next(s for s in sources if not s.endswith(".cuh"))
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [compiler, *flags, "-I", str(CSRC), "-o", tmp, str(CSRC / unit)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{compiler} failed ({proc.returncode}) "
-                               f"building {unit}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)      # atomic: concurrent builders both land
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build the SMLA kernel")
-
-
-def _bind(lib: ctypes.CDLL, fn_name: str, n_ptrs: int, extra=()):
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + list(extra)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def load_library(path: pathlib.Path) -> ctypes.CDLL:
+def load_library(path) -> ctypes.CDLL:
     """Load a built engine library and declare its C interface."""
     lib = ctypes.CDLL(str(path))
     lib.smla_scratch_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.smla_scratch_words.restype = None
     if hasattr(lib, "smla_sim_launch"):
-        _bind(lib, "smla_sim_launch", 11, (ctypes.c_int, ctypes.c_void_p))
+        bind(lib, "smla_sim_launch", 11, (ctypes.c_int, ctypes.c_void_p))
     if hasattr(lib, "smla_sim_host"):
-        _bind(lib, "smla_sim_host", 11)
+        bind(lib, "smla_sim_host", 11)
     return lib
 
 
 @functools.cache
 def build() -> ctypes.CDLL:
     """Build (first use only) and load the CUDA kernel library."""
-    return load_library(compile_library(_nvcc(), NVCC_FLAGS, KERNEL_SOURCES,
+    return load_library(compile_library(nvcc(), NVCC_FLAGS, KERNEL_SOURCES,
                                         "smla_engine"))
 
 
@@ -262,9 +202,9 @@ def sim_cell_blocks(params: dict, traces: dict, *, horizon: int,
     check_packed(p, dev)
     bufs = alloc_buffers(lib, p, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.smla_sim_launch(*pointer_args(p, bufs),
-                                  threads_per_block(ctx["N"], dev), stream)
+                                  threads_per_block(ctx["N"], dev),
+                                  stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"smla_sim_kernel launch failed: CUDA error "
                            f"{err}")

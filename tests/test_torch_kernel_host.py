@@ -18,6 +18,7 @@ from repro.core.smla import sweep as ref_sweep  # noqa: E402
 from repro.core.smla.config import paper_configs  # noqa: E402
 from repro.core.smla.traces import WorkloadSpec  # noqa: E402
 from repro_torch.convert import from_reference  # noqa: E402
+from repro_torch import _build  # noqa: E402
 from repro_torch.core.smla import cuda_engine, engine  # noqa: E402
 from test_golden import HORIZON as GOLDEN_HORIZON, _grid_cells  # noqa: E402
 from torch_parity import diff_batches, port_core, stacked_inputs  # noqa: E402
@@ -30,7 +31,7 @@ HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 def host_lib():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
-    path = cuda_engine.compile_library("g++", HOST_FLAGS, HOST_SOURCES,
+    path = _build.compile_library("g++", HOST_FLAGS, HOST_SOURCES,
                                        "smla_host")
     return cuda_engine.load_library(path)
 
@@ -74,7 +75,7 @@ def test_host_build_matches_plain_policy_grid(host_lib):
 def test_header_enums_match_wrapper():
     """The C enums and the wrapper's column tuples name the same fields in
     the same order."""
-    src = (cuda_engine.CSRC / "smla_cycle.cuh").read_text()
+    src = (_build.CSRC / "smla_cycle.cuh").read_text()
 
     def enum(name, prefix):
         body = re.search(r"enum " + name + r" : int \{(.*?)\};", src,
