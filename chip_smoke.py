@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the SMLA system (``src/repro_torch``)
 on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
-and the serving path whose captured traffic feeds it.
+the serving path whose captured traffic feeds it, and the training path.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,7 @@ Phases (each prints one line with its seconds; any failed check raises
 and the script exits non-zero):
 
 1. card      the GPU's name and power limit (nvidia-smi) and CUDA version.
-2. build     nvcc builds the three kernel libraries from
+2. build     nvcc builds the four kernel libraries from
              ``src/repro_torch/csrc``, all at once.
 3. golden    the golden grid (``tests/golden/smla_small_grid.json``)
              through ``run_sweep`` on the kernel: ints exact, floats to
@@ -44,8 +44,13 @@ and the script exits non-zero):
              `bridge.capture_generate`; launch counters reset just before
              and read just after (flash 22, decode 22 x 63); then the
              same tokens teacher-forced through the plain path
-             (attn_impl "naive"): every step's logits within 5e-2, every
-             generated token within 5e-2 of the plain top logit.
+             (attn_impl "naive").  bf16: every step's logits within
+             max(5e-2, 1.5 x the gap between the reference's own two
+             plain paths, chunked and naive, on the same tokens), and
+             every generated token within twice that of the plain top
+             logit; float32 replay of the same weights and tokens: the
+             kernels' float32 builds against their plain versions,
+             model-wide, logits within 1e-3.
 8. serve_sim the captured stream through the rest of the serve<->sim loop:
              `StreamProfile.from_capture`, `mix_trace` for the three
              traffic classes of ``benchmarks/paper_fig_serve.py`` x
@@ -53,7 +58,31 @@ and the script exits non-zero):
              through `run_sweep` on the kernel (launches counted, every
              cell must complete), and one class x both organisations at
              n_req 120 held against the plain engine on the card.
-9. kernels   one JSON line: each kernel with its launches on its main
+9. attn_bwd_parity  the flash-attention backward kernel against its
+             plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
+             Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
+             a ragged S 200, bf16 and float32, causal and full (dq, dk,
+             dv); and gradients through `ops.flash_attention`'s autograd
+             Function against autograd through the plain forward.  The
+             kernel is timed beside its plain version and the backward of
+             SDPA (a yardstick; the port never calls it).
+10. train    the training path at full width: tinyllama-1.1b (bf16
+             compute, float32 master weights and AdamW state), random
+             weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
+             tokens, 6 steps through `launch/train.py`'s functions
+             (`init_state`, `make_train_step`, `loop.train`; attn_impl
+             "pallas", remat "full").  Launch counters reset just before
+             and read just after: every step launches the forward kernel
+             44 times (22 layers, each recomputed once under remat) and
+             the backward 22 times.  Losses finite; step time, tokens/s,
+             peak memory and the device-busy share of one profiled step.
+             A float32 replay at full width holds the loss and every
+             gradient leaf of one step against the same step with the
+             kernels' plain versions swapped in; bf16 losses are held to
+             the noise floor the phase measures (chunked vs naive).  A
+             resume check (2 layers at full width): save after step 2,
+             restore, take step 3: the same loss as the uninterrupted run.
+11. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -66,11 +95,13 @@ before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -105,6 +136,24 @@ SERVE_TOL = 5e-2
 #: the same in float32 math, kernels against their plain versions (the
 #: float32 logits tolerance of tests/test_torch_transformer.py)
 SERVE_TOL_F32 = 1e-3
+
+#: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd)
+BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64))
+#: the training config and run of phase `train` (TinyLlama's published
+#: context, 2048 tokens)
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+#: layers of the resume check's model (full width, reduced depth)
+RESUME_LAYERS = 2
+#: float32 replay, kernels against their plain versions: the loss to this
+#: relative error, every gradient leaf to this fraction of its max |g|
+#: (only summation order differs: H100 runs measured 1.2e-7 and 7.0e-7)
+TRAIN_LOSS_TOL_F32 = 1e-6
+TRAIN_GRAD_TOL_F32 = 1e-5
+#: bf16 losses of the kernel path against the plain versions; raised to
+#: 1.5x the reference's own two plain paths' gap where bf16 rounding
+#: alone exceeds it (H100: gap 3.0e-5, chunked vs naive 2.1e-4)
+TRAIN_LOSS_TOL_BF16 = 1e-3
 
 
 def phase(name):
@@ -174,6 +223,17 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def device_events(prof):
+    """(name, ms) of a ``torch.profiler`` window's device events (kernels,
+    copies, fills), largest first.  Device events only: a CPU op's device
+    time repeats its kernels'."""
+    import torch
+    return sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+
+
 def attn_bound_ms(bytes_moved: float, flops: float):
     """The larger of bytes over HBM bandwidth and FLOPs over the bf16
     tensor-core peak, in ms, and which of the two it is."""
@@ -192,6 +252,19 @@ def flash_work(q, k, causal=True):
         + 4 * b * hq * s
     pairs = s * (s + 1) // 2 if causal else s * s
     return n_bytes, 4.0 * b * hq * hd * pairs
+
+
+def flash_bwd_work(q, k, causal=True):
+    """(bytes, FLOPs) the flash-attention backward must move and do for q
+    (B,S,Hq,hd), k/v (B,S,Hkv,hd): q, k, v, o, do and the float32 lse read
+    once, dq, dk, dv written once; five S x S x hd products per (batch,
+    q head) — s, dp, dv, dk, dq — over the causal triangle (or the full
+    square)."""
+    b, s, hq, hd = q.shape
+    n_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+        + 4 * b * hq * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return n_bytes, 10.0 * b * hq * hd * pairs
 
 
 def decode_work(q, k_cache, lengths):
@@ -279,10 +352,16 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import common as cm
     from repro_torch.models import get_model, logits_fn
     from repro_torch.serve import bridge
     from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.losses import chunked_lm_loss
+    from repro_torch.train.step import (init_state, make_grad_fn,
+                                        make_train_step)
 
     dev = torch.device("cuda", 0)
     kern = cuda_engine.sim_cell_blocks
@@ -300,11 +379,13 @@ def main() -> int:
 
     @phase("build")
     def build():
-        mods = (cuda_engine, fa_kernel, dec_kernel)
-        with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-            libs = list(pool.map(lambda m: m.build(), mods))
-        return libs, "nvcc built " + ", ".join(
-            str(m.KERNEL_SOURCES) for m in mods)
+        builds = {cuda_engine.KERNEL_SOURCES: cuda_engine.build,
+                  fa_kernel.KERNEL_SOURCES: fa_kernel.build,
+                  fa_kernel.BWD_SOURCES: fa_kernel.build_bwd,
+                  dec_kernel.KERNEL_SOURCES: dec_kernel.build}
+        with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+            libs = list(pool.map(lambda fn: fn(), builds.values()))
+        return libs, "nvcc built " + ", ".join(map(str, builds))
 
     @phase("golden")
     def golden():
@@ -589,6 +670,111 @@ def main() -> int:
                      f"{attn_err['decode']}); flash {fa['ms']:.4f} ms, "
                      f"decode {de['ms']:.4f} ms per call")
 
+    def flash_bwd_plain(q, k, v, o, lse, do, causal=True):
+        t = lambda x: x.transpose(1, 2)  # noqa: E731
+        return tuple(t(x) for x in fa_ref.attention_bwd(
+            t(q), t(k), t(v), t(o), lse, t(do), causal=causal))
+
+    def rel_err(got, want) -> float:
+        """max |got - want| over max |want|."""
+        return max_abs(got, want) / max(float(want.float().abs().max()),
+                                        1e-30)
+
+    bwd_err = {"max_abs": 0.0, "max_rel": 0.0}
+
+    @phase("attn_bwd_parity")
+    def attn_bwd_parity():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        n = 0
+        for b, s_len, hq, hkv, hd in BWD_SHAPES:
+            for dt in (bf16, f32):
+                for causal in (True, False):
+                    q = randn(gen, (b, s_len, hq, hd), dt)
+                    k = randn(gen, (b, s_len, hkv, hd), dt)
+                    v = randn(gen, (b, s_len, hkv, hd), dt)
+                    do = randn(gen, (b, s_len, hq, hd), dt)
+                    o, lse = fa_kernel.flash_attention_fwd(q, k, v,
+                                                           causal=causal)
+                    got = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal=causal)
+                    want = flash_bwd_plain(q, k, v, o, lse, do, causal)
+                    # float32: 1e-5 of max |grad| (sums in another
+                    # order); bf16: one bf16 ulp at max |grad|
+                    tol = 1e-5 if dt == f32 else 2 ** -7
+                    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                        if g.dtype != w.dtype or g.shape != w.shape:
+                            raise RuntimeError(f"bwd {name}: {g.dtype}"
+                                               f"{tuple(g.shape)}")
+                        err = rel_err(g, w)
+                        if not err <= tol:
+                            raise RuntimeError(
+                                f"flash bwd B{b} S{s_len} Hq{hq} Hkv{hkv} "
+                                f"hd{hd} {dt} causal={causal} {name}: "
+                                f"relative error {err} > {tol}")
+                        bwd_err["max_rel"] = max(bwd_err["max_rel"], err)
+                        bwd_err["max_abs"] = max(bwd_err["max_abs"],
+                                                 max_abs(g, w))
+                    n += 1
+
+        # end to end: gradients through the autograd Function against
+        # autograd through the plain forward (float32, 1e-5 of max |g|);
+        # a ragged S with q/k/v strided views of one fused projection, and
+        # the training shape
+        def grads(x, b, s_len, hq, hkv, hd, kernel):
+            q, k, v = torch.split(x, [hq * hd, hkv * hd, hkv * hd], -1)
+            q, k, v = (t.view(b, s_len, -1, hd) for t in (q, k, v))
+            if kernel:
+                o = fa_ops.flash_attention(q, k, v, causal=True)
+            else:
+                o = flash_plain(q, k, v, True)[0]
+            return torch.autograd.grad((o.float() ** 2).sum(), x)[0]
+        e2e = 0.0
+        for b, s_len, hq, hkv, hd in ((2, 200, 8, 2, 64), BWD_SHAPES[0]):
+            x = randn(gen, (b, s_len, (hq + 2 * hkv) * hd),
+                      f32).requires_grad_()
+            fa_kernel.flash_attention_bwd.launches = 0
+            got = grads(x, b, s_len, hq, hkv, hd, True)
+            if fa_kernel.flash_attention_bwd.launches != 1:
+                raise RuntimeError("autograd did not launch the backward "
+                                   "kernel once")
+            err = rel_err(got, grads(x, b, s_len, hq, hkv, hd, False))
+            if not err <= 1e-5:
+                raise RuntimeError(f"flash autograd S{s_len}: relative "
+                                   f"error {err} > 1e-5")
+            e2e = max(e2e, err)
+            n += 1
+
+        # times at the training path's shape, bf16, causal
+        b, s_len, hq, hkv, hd = BWD_SHAPES[0]
+        q = randn(gen, (b, s_len, hq, hd), bf16)
+        k = randn(gen, (b, s_len, hkv, hd), bf16)
+        v = randn(gen, (b, s_len, hkv, hd), bf16)
+        do = randn(gen, (b, s_len, hq, hd), bf16)
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v)
+        tq, tk, tv = (x.transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            tq, tk, tv, is_causal=True, enable_gqa=True)
+        tdo = do.transpose(1, 2)
+        bw = {"ms": cuda_ms(lambda: fa_kernel.flash_attention_bwd(
+                  q, k, v, o, lse, do), reps=5, calls=5)[0],
+              "plain_ms": cuda_ms(lambda: flash_bwd_plain(
+                  q, k, v, o, lse, do), reps=3, calls=3)[0],
+              "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                  so, (tq, tk, tv), tdo, retain_graph=True),
+                  reps=5, calls=5)[0],
+              "fwd_ms": cuda_ms(lambda: fa_kernel.flash_attention_fwd(
+                  q, k, v), reps=5, calls=5)[0]}
+        bw["bound_ms"], bw["bound_by"] = attn_bound_ms(*flash_bwd_work(q, k))
+        bw["fwd_bound_ms"] = attn_bound_ms(*flash_work(q, k))[0]
+        bw["autograd_rel_err"] = e2e
+        print(json.dumps({"attn_bwd_parity": bw}), flush=True)
+        return bw, (f"{n} backward checks passed (max relative err "
+                    f"{bwd_err['max_rel']}, autograd {e2e}); bwd "
+                    f"{bw['ms']:.4f} ms per call at B{b} S{s_len} Hq{hq} "
+                    f"(plain {bw['plain_ms']:.4f}, SDPA backward "
+                    f"{bw['library_ms']:.4f}, bound {bw['bound_ms']:.5f})")
+
     def decode_profile(eng, prefill_fn, decode_fn, tokens, out, n=8):
         """`n` decode steps of the serving run under torch.profiler: the
         window's wall time (the profiler slows the host), the device's
@@ -610,12 +796,7 @@ def main() -> int:
                     cache, _ = decode_fn(eng.params, out[:, t:t + 1], cache)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-        # device events only: a CPU op's device time repeats its kernels'
-        kernels = sorted(((e.key, e.self_device_time_total / 1e3)
-                          for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and e.self_device_time_total > 0),
-                         key=lambda kv: -kv[1])
+        kernels = device_events(prof)
         busy_ms = sum(ms for _, ms in kernels)
         return {"steps": n, "profiled_wall_ms_per_step": wall_ms / n,
                 "device_busy_ms_per_step": (busy_ms / n if busy_ms
@@ -834,6 +1015,178 @@ def main() -> int:
                     f"launches, kernel {kernel_ms:.3f} ms; kernel == plain "
                     f"on {len(small)} cells at n_req 120")
 
+    def step_profile(step_fn, state, batch):
+        """One train step under torch.profiler: its wall time (the
+        profiler slows the host), the device's busy time in it (device
+        events only: kernels, copies, fills) and the events taking most."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = sum(ms for _, ms in events)
+        return {"profiled_wall_ms": wall_ms,
+                "device_busy_ms": busy if busy else "not measured",
+                "top_device_events_ms": [(k[:80], ms)
+                                         for k, ms in events[:10]]}
+
+    @phase("train")
+    def train():
+        cfg = get_config(TRAIN_ARCH)
+        pcfg = launch_train.PCFG
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_state(0, cfg, device=dev)
+        step_fn = make_train_step(cfg, pcfg, total=TRAIN_STEPS)
+        per_step = []
+
+        def counted(st, batch):
+            """The step, with the kernel calls it made recorded."""
+            f0 = fa_kernel.flash_attention_fwd.launches
+            b0 = fa_kernel.flash_attention_bwd.launches
+            out = step_fn(st, batch)
+            per_step.append((fa_kernel.flash_attention_fwd.launches - f0,
+                             fa_kernel.flash_attention_bwd.launches - b0))
+            return out
+
+        torch.cuda.synchronize()
+        fa_kernel.flash_attention_fwd.launches = 0
+        fa_kernel.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        state, hist = train_loop.train(
+            state, counted, data, train_loop.LoopConfig(
+                total_steps=TRAIN_STEPS, log_every=1),
+            log=lambda line: print(f"  {line}", flush=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash": fa_kernel.flash_attention_fwd.launches,
+                    "flash_bwd": fa_kernel.flash_attention_bwd.launches}
+        # per step: the forward kernel once per layer and once more in
+        # the layer's recompute (remat "full"), the backward once per layer
+        want_step = (2 * cfg.n_layers, cfg.n_layers)
+        want = {"flash": TRAIN_STEPS * want_step[0],
+                "flash_bwd": TRAIN_STEPS * want_step[1]}
+        if launches != want or any(c != want_step for c in per_step):
+            raise RuntimeError(f"train: kernel launches {launches} (per "
+                               f"step {per_step}), want {want}")
+        losses = hist["losses"]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise RuntimeError(f"train: losses {losses}")
+        step_ms = sorted(hist["step_s"][2:])
+        med_ms = 1e3 * (step_ms[1] + step_ms[2]) / 2   # median of steps 3-6
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        prof = step_profile(counted, state, data.batch(TRAIN_STEPS))
+        busy = prof["device_busy_ms"]
+        prof["device_busy_share"] = (busy / med_ms if busy != "not measured"
+                                     else busy)
+
+        # the same weights and batch, forward only: the bf16 loss of the
+        # kernel path against its plain versions, and the bf16 noise floor
+        # (the reference's two plain paths, chunked vs naive)
+        batch0 = {k: torch.from_numpy(v).to(dev)
+                  for k, v in data.batch(0).items()}
+        model = get_model(cfg)
+
+        @contextlib.contextmanager
+        def plain_kernels():
+            """The kernels' plain versions in their place, under the same
+            autograd Function."""
+            saved = (fa_kernel.flash_attention_fwd,
+                     fa_kernel.flash_attention_bwd)
+            fa_kernel.flash_attention_fwd = flash_plain
+            fa_kernel.flash_attention_bwd = flash_bwd_plain
+            try:
+                yield
+            finally:
+                (fa_kernel.flash_attention_fwd,
+                 fa_kernel.flash_attention_bwd) = saved
+
+        def loss_of(rcfg, impl="pallas", plain=False):
+            pc = dataclasses.replace(pcfg, attn_impl=impl)
+            with (plain_kernels() if plain else contextlib.nullcontext()), \
+                    torch.no_grad():
+                h, _ = model.forward(state.params, batch0, rcfg, pc)
+                return float(chunked_lm_loss(state.params, h,
+                                             batch0["labels"], rcfg,
+                                             chunk=pc.logit_chunk))
+        l16 = {"kernel": loss_of(cfg), "plain": loss_of(cfg, plain=True),
+               "naive": loss_of(cfg, "naive"),
+               "chunked": loss_of(cfg, "chunked")}
+        floor16 = abs(l16["chunked"] - l16["naive"])
+        tol16 = max(TRAIN_LOSS_TOL_BF16, 1.5 * floor16)
+        gap16 = abs(l16["kernel"] - l16["plain"])
+
+        # float32 replay at full width: one step's loss and every gradient
+        # leaf with the kernels against the same with their plain versions
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        grad32 = make_grad_fn(cfg32, pcfg)
+        (lk, _), gk = grad32(state.params, batch0)
+        with plain_kernels():
+            (lp, _), gp = grad32(state.params, batch0)
+        loss_err32 = abs(float(lk) - float(lp)) / abs(float(lp))
+        flat_p = cm.flatten_paths(gp)
+        grad_err32 = {name: rel_err(g, flat_p[name])
+                      for name, g in cm.flatten_paths(gk).items()}
+        worst32 = max(grad_err32.values())
+        del gk, gp, flat_p
+        replay = {"bf16_losses": l16, "bf16_gap": gap16,
+                  "bf16_floor_chunked_vs_naive": floor16,
+                  "bf16_tolerance": tol16, "f32_loss_kernel": float(lk),
+                  "f32_loss_plain": float(lp), "f32_loss_rel_err": loss_err32,
+                  "f32_grad_rel_err_max": worst32,
+                  "f32_grad_rel_err": grad_err32}
+        print(json.dumps({"train_replay": replay}), flush=True)
+        if not (gap16 <= tol16 and loss_err32 <= TRAIN_LOSS_TOL_F32
+                and worst32 <= TRAIN_GRAD_TOL_F32):
+            raise RuntimeError(
+                f"train: kernel path vs plain versions: bf16 loss gap "
+                f"{gap16} (tolerance {tol16}), float32 loss {loss_err32} "
+                f"(tolerance {TRAIN_LOSS_TOL_F32}), float32 grads {worst32} "
+                f"(tolerance {TRAIN_GRAD_TOL_F32})")
+        del state
+
+        # resume: 2 layers at full width; save after step 2, restore, take
+        # step 3 through the loop: the uninterrupted run's loss
+        rcfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+        rstep = make_train_step(rcfg, pcfg, total=TRAIN_STEPS)
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            rstate, rhist = train_loop.train(
+                init_state(1, rcfg, device=dev), rstep, data,
+                train_loop.LoopConfig(total_steps=3, ckpt_dir=d,
+                                      ckpt_every=2, log_every=100))
+            restored = ckpt.restore(rstate, d, step=2)
+            _, rhist2 = train_loop.train(
+                restored, rstep, data, train_loop.LoopConfig(total_steps=3,
+                                                             log_every=100))
+        resume_err = abs(rhist2["losses"][0] - rhist["losses"][2])
+        if not resume_err <= 1e-6:
+            raise RuntimeError(f"train: resumed loss {rhist2['losses'][0]} "
+                               f"vs {rhist['losses'][2]}")
+
+        st = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": TRAIN_STEPS, "losses": losses,
+              "step_ms": [1e3 * x for x in hist["step_s"]],
+              "step_ms_median_3_6": med_ms,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med_ms * 1e3,
+              "wall_s": wall, "peak_memory_gb": peak_gb,
+              "launches": launches, "launches_per_step": want_step,
+              "profile": prof, "replay_f32_grad_rel_err": worst32,
+              "replay_f32_loss_rel_err": loss_err32, "bf16_loss_gap": gap16,
+              "resume_loss_err": resume_err, "card": smi}
+        print(json.dumps({"train": st}), flush=True)
+        return st, (
+            f"{TRAIN_ARCH} B{TRAIN_BATCH} x {TRAIN_SEQ}: step "
+            f"{med_ms:.1f} ms, {st['tokens_per_s']:.0f} tok/s, peak "
+            f"{peak_gb:.1f} GB ({smi}); launches {launches}; losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; float32 replay grads "
+            f"{worst32:.2e}, loss {loss_err32:.2e}; bf16 loss gap {gap16:.5f}"
+            f" (floor {floor16:.5f}); resume exact to {resume_err}")
+
     t_start = time.perf_counter()
     smi = card()
     build()
@@ -843,6 +1196,8 @@ def main() -> int:
     attn = attn_parity()
     cap, serve_stats = serve()
     sim_stats = serve_sim(cap)
+    bwd = attn_bwd_parity()
+    train_stats = train()
 
     @phase("kernels")
     def kernels():
@@ -865,8 +1220,21 @@ def main() -> int:
             "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
             "launches": serve_stats["launches"]["flash"],
+            "train_launches": train_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
+            "train_shape_ms": bwd["fwd_ms"],
+            "train_shape_bound_ms": bwd["fwd_bound_ms"],
+            "check": "ok"}, {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:219",
+            "launches": train_stats["launches"]["flash_bwd"],
+            "max_abs_err": bwd_err["max_abs"],
+            "max_rel_err": bwd_err["max_rel"],
+            **{k: bwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+            "shape": "q/o/do (4,2048,32,64), k/v (4,2048,4,64) bf16, causal",
             "check": "ok"}, {
             "name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -876,7 +1244,7 @@ def main() -> int:
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
             "check": "ok"}]}
         print(json.dumps(line), flush=True)
-        return None, "3 kernels, all checks passed"
+        return None, "4 kernels, all checks passed"
 
     kernels()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

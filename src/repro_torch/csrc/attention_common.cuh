@@ -1,6 +1,7 @@
 // Helpers shared by the attention kernels (flash_attention_fwd.cu,
-// decode_attention.cu): element conversion to and from float32, and the
-// strides of a (B, S, H, hd) tensor whose last dimension is contiguous.
+// flash_attention_bwd.cu, decode_attention.cu): element conversion to and
+// from float32, and the strides of a (B, S, H, hd) tensor whose last
+// dimension is contiguous.
 #pragma once
 
 #include <cuda_bf16.h>

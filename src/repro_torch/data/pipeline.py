@@ -1,6 +1,6 @@
-"""Deterministic synthetic LM data pipeline, host-sharded (port of
-``repro/data/pipeline.py``: `SyntheticLM` is numpy and copied as it is;
-``Prefetcher`` comes with the training slice).
+"""Deterministic synthetic LM data pipeline, host-sharded, prefetched
+(port of ``repro/data/pipeline.py``: numpy and a thread, copied as they
+are; `Prefetcher`'s `transform` may move a batch to the card).
 
 The stream is LEARNABLE (so integration tests can assert loss decreases):
 a Zipf unigram backbone + Markov bigram structure + induction segments
@@ -13,6 +13,8 @@ elastic: a host only materialises its batch slice.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -57,3 +59,43 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class Prefetcher:
+    """Background-thread double buffering (overlap host data gen with step).
+    `next()` gives ``(step, transform(source.batch(step)))`` in step order
+    from `start_step`, at most `depth` ahead; `close()` stops the thread."""
+
+    def __init__(self, source: SyntheticLM, start_step: int = 0, depth: int = 2,
+                 transform=None):
+        self.source = source
+        self.transform = transform or (lambda x: x)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            item = self.transform(self.source.batch(step))
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, item), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

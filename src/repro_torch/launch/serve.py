@@ -1,5 +1,5 @@
-"""Serving launcher: init the params, serve batched synthetic requests
-(port of ``repro/launch/serve.py``).
+"""Serving launcher: load a checkpoint (or init), serve batched synthetic
+requests (port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 8 --prompt-len 32 --new-tokens 32
@@ -8,8 +8,8 @@ Runs on ``cuda`` unless ``--device cpu`` is given, with
 ``attn_impl="pallas"``: the hand-written Hopper kernels for prefill
 (flash attention) and decode (flash-decode); on the CPU their plain
 versions.  (The reference launcher's ``"chunked"`` is an XLA path with no
-kernel.)  ``--ckpt-dir`` raises until the training slice ports
-``train/checkpoint.py``.
+kernel.)  ``--ckpt-dir`` serves the params of the latest checkpoint there
+(written by either package's ``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.configs import ParallelConfig, get_config, reduce_config
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.models import get_model
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.step import init_state
 
 
 def main(argv=None) -> int:
@@ -38,15 +39,17 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoint restore comes with "
-                                  "the training slice (ROADMAP Slice E)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_config(cfg)
     pcfg = ParallelConfig(attn_impl="pallas", moe_impl="dense",
                           remat="none")
-    params = get_model(cfg).init(0, cfg, device=args.device)
+    state = init_state(0, cfg, device=args.device)
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir):
+        state = ckpt.restore(state, args.ckpt_dir)
+        print(f"loaded checkpoint step {int(state.step)}")
+    params = state.params
+    del state                         # the optimizer moments are not served
     eng = Engine(cfg, pcfg,
                  ServeConfig(max_seq=args.prompt_len + args.new_tokens + 8,
                              policy=args.policy,

@@ -135,6 +135,23 @@ def flatten_paths(tree, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def leaves(tree) -> list:
+    """The leaves of nested dicts in JAX's order (``jax.tree.leaves``:
+    keys sorted at every level)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def map_tree(fn, *trees):
+    """`fn` over the leaves of nested dicts of one structure, as
+    ``jax.tree.map`` (called in `leaves` order)."""
+    if isinstance(trees[0], dict):
+        return {k: map_tree(fn, *(t[k] for t in trees))
+                for k in sorted(trees[0])}
+    return fn(*trees)
+
+
 def unflatten_paths(flat: dict[str, Any]) -> Params:
     tree: dict = {}
     for path, v in flat.items():

@@ -5,8 +5,11 @@ One implementation serves forward, prefill and single-token decode; layer
 weights are stacked on a leading L dim, and the reference's ``scan`` over
 them is a Python loop over that dim.  The MoE family is not ported yet
 (ROADMAP Slice D); M-RoPE (the VLM family) raises in
-`attention.position_embed`.  Remat is a training concern: serving runs
-under ``torch.inference_mode()``.
+`attention.position_embed`.  ``forward`` honours ``pcfg.remat == "full"``:
+each layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward, the counterpart of the reference's ``jax.checkpoint(...,
+nothing_saveable)`` (under ``torch.inference_mode()`` nothing is
+recomputed).  Serving (prefill, decode) has no backward and no remat.
 
 The KV cache is bf16 whatever ``cfg.dtype`` is, as in the reference.  The
 reference is functional and returns a new cache; here prefill and decode
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import attention as att
@@ -146,7 +150,7 @@ def logits_fn(params, hidden, cfg):
 
 
 # ----------------------------------------------------------------------------
-# forward (eval): tokens -> hidden states
+# forward (train / eval): tokens -> hidden states
 # ----------------------------------------------------------------------------
 
 
@@ -164,7 +168,13 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
     positions = _positions_from_batch(batch, cfg)
     x = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
-        x = _dense_layer(_layer(params, i), x, positions, cfg, pcfg)
+        pl = _layer(params, i)
+        if pcfg.remat == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                _dense_layer, pl, x, positions, cfg, pcfg,
+                use_reentrant=False)
+        else:
+            x = _dense_layer(pl, x, positions, cfg, pcfg)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
                                        device=x.device)}

@@ -80,9 +80,15 @@ def test_ops_model_layout_on_cpu():
 
 
 def test_ops_raises_on_grad():
-    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    """A tensor that requires grad goes through the autograd Function,
+    which dispatches by device in both directions: neither CPU nor CUDA
+    raises, forward and backward alike.  (The backward's values are
+    tested in test_torch_flash_attention_bwd.py.)"""
+    q = torch.zeros((1, 8, 2, 16), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
         PO.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        PO._backward(q, q, q, q, q, q, True)
 
 
 def test_kernel_wrapper_raises_on_cpu_tensors():

@@ -115,9 +115,16 @@ def test_launcher_runs_on_cpu(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "generated 8 tokens" in out and "device=cpu" in out
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        launch_serve.main(["--arch", "tinyllama-1.1b", "--smoke",
-                           "--device", "cpu", "--ckpt-dir", "/nonexistent"])
+    # a directory with no checkpoint serves the initialised params, as the
+    # reference does (serving a saved state: test_torch_checkpoint.py)
+    rc = launch_serve.main(["--arch", "tinyllama-1.1b", "--smoke",
+                            "--device", "cpu", "--requests", "2",
+                            "--prompt-len", "8", "--new-tokens", "4",
+                            "--ckpt-dir", "/nonexistent"])
+    assert rc == 0
+    out2 = capsys.readouterr().out
+    assert "loaded checkpoint" not in out2
+    assert out2.splitlines()[-1] == out.splitlines()[-1]
 
 
 def test_cuda_without_card_raises(setup):
