@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the SMLA system (``src/repro_torch``)
 on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
-the serving path whose captured traffic feeds it, and the training path.
+the serving path whose captured traffic feeds it, the training path, the
+paper's Cascaded-IO datapath matmul and its benchmark, and RWKV-6
+training.
 
     python3 chip_smoke.py
 
@@ -9,7 +11,7 @@ Phases (each prints one line with its seconds; any failed check raises
 and the script exits non-zero):
 
 1. card      the GPU's name and power limit (nvidia-smi) and CUDA version.
-2. build     nvcc builds the four kernel libraries from
+2. build     nvcc builds the six kernel libraries from
              ``src/repro_torch/csrc``, all at once.
 3. golden    the golden grid (``tests/golden/smla_small_grid.json``)
              through ``run_sweep`` on the kernel: ints exact, floats to
@@ -82,7 +84,37 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-11. kernels  one JSON line: each kernel with its launches on its main
+11. pipe_parity  the SMLA cascaded-pipeline matmul kernel (Cascaded-IO,
+             and Dedicated-IO as L launches + a sum) against its plain
+             versions and `matmul_striped`: the reference test's grid in
+             float32 and bf16, ragged M, N and stripes, the striping order;
+             then the main path, `benchmarks/smla_pipe_bench.run` at its two
+             shapes (launch counters reset just before and read just after),
+             and the plain versions timed at the realistic shape, x (8192,
+             2048) @ w (4, 512, 5632).
+12. wkv_parity  the WKV6 kernel against its plain version (the chunked
+             path) and the sequential oracle, `y` and the final state, at
+             (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
+             training shape (4,40,2048,64) chunk 64 with float32 and bf16
+             r, k, v; timed beside its plain version at the training shape;
+             the autograd Function's backward timed there, its gradients
+             equal, bit for bit, whichever forward ran.
+13. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+             8960, vocab 65536, bf16 compute, float32 master weights) cut
+             to 8 of its 32 layers, random weights from seed 0,
+             `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
+             `launch/train.py`'s functions (attn_impl "pallas", remat
+             "full"): exactly 16 wkv6 launches per step (8 layers + their
+             recomputes); first a float32 replay of one step from the
+             initial weights: the loss against the kernel's plain version
+             under the same autograd Function, every gradient leaf against
+             a float64 witness (the plain and the sequential path in
+             float64), within 1.5 x the farther of the two plain float32
+             paths from it, at least 1e-5 (see W64_TOL's notes); after
+             training, the bf16 loss against the chunked path, within 1.5
+             x the gap between the chunked and the sequential path (at
+             least 1e-3).
+14. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -125,6 +157,11 @@ PEAK_OPS_S = 67e12
 #: dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet), the
 #: rate the attention kernels' FLOPs are held against
 PEAK_BF16_FLOPS = 989e12
+#: exps per second of one H100 SXM's special-function units: 16 results
+#: per clock per SM at compute capability 9.0 (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput), 132 SMs at the 1,980 MHz
+#: boost clock (NVIDIA data sheet); the rate WKV6's exps are held against
+PEAK_SFU_S = 16 * 132 * 1.98e9
 
 #: the serving config and run of phase `serve`
 SERVE_ARCH = "tinyllama-1.1b"
@@ -154,6 +191,68 @@ TRAIN_GRAD_TOL_F32 = 1e-5
 #: 1.5x the reference's own two plain paths' gap where bf16 rounding
 #: alone exceeds it (H100: gap 3.0e-5, chunked vs naive 2.1e-4)
 TRAIN_LOSS_TOL_BF16 = 1e-3
+
+#: the float32 rates of the tensor cores (TF32) of one H100 SXM (NVIDIA
+#: data sheet, dense), written beside the matmul's bound for a later
+#: perf_opt; the kernel itself promises float32 products
+PEAK_TF32_FLOPS = 495e12
+#: phase `pipe_parity`: (M, K, N, L) of the reference test's grid
+#: (tests/test_kernels.py:149-150) and ragged M, N and stripes
+PIPE_GRID = ((128, 256, 128, 2), (256, 512, 128, 4), (128, 512, 256, 8))
+PIPE_RAGGED = ((192, 512, 128, 4), (128, 384, 192, 4))
+#: the kernel against its plain versions and `matmul_striped`: this
+#: fraction of max |ref| for both dtypes (bf16 inputs are upcast exactly;
+#: only the order of the float32 sums differs)
+PIPE_TOL = 1e-5
+#: phase `wkv_parity`: ((B, H, S, hd), chunks); the last is the training
+#: shape of rwkv6-3b (batch 4 x 2048, 40 heads of 64, chunk 64)
+WKV_SHAPES = (((2, 3, 128, 32), (16, 32, 64)), ((2, 2, 64, 16), (16,)),
+              ((4, 40, 2048, 64), (64,)))
+#: y and the state against the plain version and the sequential oracle,
+#: float32: this fraction of max |ref|
+WKV_TOL = 1e-5
+#: the training config and run of phase `train_rwkv`: rwkv6-3b at full
+#: width (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) with its depth
+#: cut from 32 layers to 8 (full depth holds 36.9 GB of float32 params,
+#: m and v, twice that during the out-of-place AdamW update: more than
+#: one card's 80 GB)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_LAYERS = 8
+RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 4, 2048, 6
+#: RWKV-6's float32 gradients are not held to TRAIN_GRAD_TOL_F32 alone:
+#: two float32 evaluations of one step that differ only in summation
+#: order differ by far more than 1e-5 of max |g| (H100: the plain chunked
+#: path against the sequential one, 8.9e-3 at the initial weights).  So
+#: each is measured against a float64 witness, the plain and the
+#: sequential path run in float64, and the kernel path must come within
+#: 1.5 x the farther of the two plain float32 paths (at least
+#: TRAIN_GRAD_TOL_F32); the loss stays at TRAIN_LOSS_TOL_F32
+#: (kernel against plain), and the Function's own gradients are the plain
+#: recompute's, the same code on both paths.  The witness's two paths
+#: must agree to W64_TOL of each leaf's max |g|: float64 rounding,
+#: amplified as float32's is, stays far below it, and any float32 left
+#: in the witness would not.
+W64_TOL = 1e-8
+
+
+def float64_mode():
+    """A torch dispatch mode that runs float32 work in float64: every
+    float32 dtype argument of an ATen op (``.float()``, ``.to``, the
+    factories) becomes float64.  Phase `train_rwkv`'s float64 witness
+    runs the model's own code under it; the mode stays on in the
+    backward, and so in the recomputes of ``torch.utils.checkpoint``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def up(a):
+        return torch.float64 if a is torch.float32 else a
+
+    class Float64(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*map(up, args),
+                        **{k: up(v) for k, v in (kwargs or {}).items()})
+
+    return Float64()
 
 
 def phase(name):
@@ -352,6 +451,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.benchmarks import smla_pipe_bench
+    from repro_torch.kernels.smla_pipe import kernel as pipe_kernel
+    from repro_torch.kernels.smla_pipe import ref as pipe_ref
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    from repro_torch.models import rwkv6
     from repro_torch.launch import train as launch_train
     from repro_torch.models import common as cm
     from repro_torch.models import get_model, logits_fn
@@ -382,7 +488,9 @@ def main() -> int:
         builds = {cuda_engine.KERNEL_SOURCES: cuda_engine.build,
                   fa_kernel.KERNEL_SOURCES: fa_kernel.build,
                   fa_kernel.BWD_SOURCES: fa_kernel.build_bwd,
-                  dec_kernel.KERNEL_SOURCES: dec_kernel.build}
+                  dec_kernel.KERNEL_SOURCES: dec_kernel.build,
+                  pipe_kernel.KERNEL_SOURCES: pipe_kernel.build,
+                  wkv_kernel.KERNEL_SOURCES: wkv_kernel.build}
         with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
             libs = list(pool.map(lambda fn: fn(), builds.values()))
         return libs, "nvcc built " + ", ".join(map(str, builds))
@@ -1187,6 +1295,426 @@ def main() -> int:
             f"{worst32:.2e}, loss {loss_err32:.2e}; bf16 loss gap {gap16:.5f}"
             f" (floor {floor16:.5f}); resume exact to {resume_err}")
 
+    # ------------------------------------------------------------------
+    # the paper's datapath kernel (smla_pipe) and RWKV-6's (wkv6)
+    # ------------------------------------------------------------------
+    pipe_err = {"cascaded": 0.0, "dedicated": 0.0}
+
+    def pipe_check(got, want, what, kind):
+        """float32 (M, N) within PIPE_TOL of max |want|."""
+        tol = PIPE_TOL * float(want.abs().max())
+        err = max_abs(got, want)
+        if got.dtype != f32 or got.shape != want.shape or not err <= tol:
+            raise RuntimeError(f"{what}: {got.dtype}{tuple(got.shape)}, max "
+                               f"abs error {err} > {tol}")
+        pipe_err[kind] = max(pipe_err[kind], err)
+
+    def pipe_work(m, k, n):
+        """(bytes, FLOPs) x (M, K) @ w (K, N) must move and do in float32:
+        x and w read once, the output written once; 2 M K N."""
+        return 4 * (m * k + k * n + m * n), 2.0 * m * k * n
+
+    @phase("pipe_parity")
+    def pipe_parity():
+        gen = torch.Generator(device=dev).manual_seed(2)
+        n = 0
+        for m, k, nn, l in PIPE_GRID + PIPE_RAGGED:
+            for dt in (f32, bf16):
+                x = randn(gen, (m, k), dt)
+                w = randn(gen, (l, k // l, nn), dt)
+                want = pipe_ref.matmul_striped(x, w)
+                what = f"smla_pipe ({m},{k},{nn},{l}) {dt}"
+                cas = pipe_kernel.matmul_cascaded(x, w)
+                ded = pipe_kernel.matmul_dedicated(x, w)
+                pipe_check(cas, pipe_ref.cascaded(x, w),
+                           what + " cascaded vs plain", "cascaded")
+                pipe_check(ded, pipe_ref.dedicated(x, w),
+                           what + " dedicated vs plain", "dedicated")
+                pipe_check(cas, want, what + " cascaded vs matmul_striped",
+                           "cascaded")
+                pipe_check(ded, want, what + " dedicated vs matmul_striped",
+                           "dedicated")
+                n += 1
+        # the striping order: layer 0's stripe first (tests/test_kernels.py
+        # :163-171), to rtol 1e-6
+        x = torch.eye(8, 32, device=dev)
+        w = torch.arange(4 * 8 * 8, dtype=f32, device=dev).reshape(4, 8, 8)
+        want = pipe_ref.matmul_striped(x, w)
+        for got in (pipe_kernel.matmul_cascaded(x, w),
+                    pipe_kernel.matmul_dedicated(x, w)):
+            if not torch.allclose(got, want, rtol=1e-6, atol=0.0):
+                raise RuntimeError("smla_pipe: striping order")
+        n += 1
+
+        # the main path: the benchmark at its two shapes, launch counters
+        # reset just before and read just after
+        torch.cuda.synchronize()
+        pipe_kernel.matmul_cascaded.launches = 0
+        pipe_kernel.matmul_dedicated.launches = 0
+        rows = {name: {r["impl"]: r for r in smla_pipe_bench.run(
+                    *shape, device=dev)}
+                for name, shape in smla_pipe_bench.SHAPES.items()}
+        torch.cuda.synchronize()
+        launches = {"cascaded": pipe_kernel.matmul_cascaded.launches,
+                    "dedicated": pipe_kernel.matmul_dedicated.launches}
+        want_l = {"cascaded": sum(r["cascaded"]["calls"]
+                                  for r in rows.values()),
+                  "dedicated": sum(smla_pipe_bench.SHAPES[name][3]
+                                   * r["dedicated"]["calls"]
+                                   for name, r in rows.items())}
+        if launches != want_l:
+            raise RuntimeError(f"smla_pipe bench: launches {launches}, want "
+                               f"{want_l}")
+        for name, r in rows.items():
+            for impl in ("cascaded", "dedicated"):
+                tol = PIPE_TOL * r[impl]["ref_max_abs"]
+                if not r[impl]["max_abs_err"] <= tol:
+                    raise RuntimeError(f"smla_pipe bench {name} {impl}: "
+                                       f"error {r[impl]['max_abs_err']} > "
+                                       f"{tol}")
+
+        # the realistic shape: kernels against their plain versions, and
+        # the plain versions' times (the kernels' and the matmul's are the
+        # bench's)
+        m, k, nn, l = smla_pipe_bench.SHAPES["realistic"]
+        x = randn(gen, (m, k), f32)
+        w = randn(gen, (l, k // l, nn), f32)
+        what = f"smla_pipe realistic ({m},{k},{nn},{l})"
+        pipe_check(pipe_kernel.matmul_cascaded(x, w), pipe_ref.cascaded(x, w),
+                   what + " cascaded", "cascaded")
+        pipe_check(pipe_kernel.matmul_dedicated(x, w),
+                   pipe_ref.dedicated(x, w), what + " dedicated", "dedicated")
+        n_bytes, flops = pipe_work(m, k, nn)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_OPS_S * 1e3
+        real = rows["realistic"]
+        out = {}
+        for impl, plain in (("cascaded", pipe_ref.cascaded),
+                            ("dedicated", pipe_ref.dedicated)):
+            out[impl] = {
+                "ms": real[impl]["ms"],
+                "plain_ms": cuda_ms(lambda: plain(x, w), reps=3,
+                                    calls=2)[0],
+                "library_ms": real["torch_matmul"]["ms"],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "tf32_bound_ms": flops / PEAK_TF32_FLOPS * 1e3,
+                "bf16_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                "launches": launches[impl], "flop": flops,
+                "bytes": n_bytes}
+        st = {"kernels": out, "bench": rows, "card": smi}
+        print(json.dumps({"pipe_parity": st}), flush=True)
+        return out, (f"{n} kernel checks passed (max abs err cascaded "
+                     f"{pipe_err['cascaded']}, dedicated "
+                     f"{pipe_err['dedicated']}); at ({m},{k},{nn},{l}) "
+                     f"cascaded {out['cascaded']['ms']:.3f} ms, dedicated "
+                     f"{out['dedicated']['ms']:.3f} ms, torch.matmul "
+                     f"{out['cascaded']['library_ms']:.3f} ms, bound "
+                     f"{out['cascaded']['bound_ms']:.3f} ms; launches "
+                     f"{launches}")
+
+    wkv_err = {"max_abs": 0.0, "max_rel": 0.0}
+
+    def wkv_inputs(gen, b, h, s, hd, dt=f32):
+        """r, k, v (B,H,S,hd) in `dt`; logw = -exp(n - 2) and u = 0.4 +
+        0.2 n, float32."""
+        r, k, v = (randn(gen, (b, h, s, hd), dt) for _ in range(3))
+        logw = -torch.exp(randn(gen, (b, h, s, hd), f32) - 2.0)
+        return r, k, v, logw, 0.4 + 0.2 * randn(gen, (h, hd), f32)
+
+    def wkv_check(got, want, tol, what):
+        scale = float(want.float().abs().max())
+        err = max_abs(got, want)
+        if got.shape != want.shape or not err <= tol * scale:
+            raise RuntimeError(f"{what}: {tuple(got.shape)}, max abs error "
+                               f"{err} > {tol} x {scale}")
+        wkv_err["max_abs"] = max(wkv_err["max_abs"], err)
+        wkv_err["max_rel"] = max(wkv_err["max_rel"], err / scale)
+
+    def wkv_work(b, h, s, hd, cs):
+        """(bytes, float32 operations, exps) WKV6 must move and do from a
+        zero state, counted from `csrc/wkv6.cu`'s arithmetic: r, k, v, logw
+        and u read once, y and the state written once; per chunk the j < i
+        score pairs (sub, two mul, add and one exp per channel; y's
+        intra-chunk mul-add), the inter-chunk y and the state update (2 x
+        cs x hd^2 each), the state's decay (hd^2 mul, hd exp); per element
+        cumsum and texc (2), the bonus (5), the y sum (1), r's decay (1 +
+        exp), k's (2 + exp)."""
+        n_el = b * h * s * hd
+        chunks = b * h * (s // cs)
+        pairs = cs * (cs - 1) // 2
+        n_bytes = 4 * (5 * n_el + h * hd + b * h * hd * hd)
+        ops = (chunks * (6 * pairs * hd + 4 * cs * hd * hd + hd * hd)
+               + 11 * n_el)
+        exps = chunks * (pairs * hd + hd) + 2 * n_el
+        return n_bytes, float(ops), float(exps)
+
+    @phase("wkv_parity")
+    def wkv_parity():
+        gen = torch.Generator(device=dev).manual_seed(3)
+        n = 0
+        for (b, h, s, hd), chunks in WKV_SHAPES:
+            for chunk in chunks:
+                r, k, v, logw, u = wkv_inputs(gen, b, h, s, hd)
+                y, st = wkv_kernel.wkv6(r, k, v, logw, u, chunk=chunk)
+                py, pst = wkv_ops.plain(r, k, v, logw, u, chunk)
+                sst, sy = wkv_ref.wkv(r, k, v, logw, u, torch.zeros(
+                    (b, h, hd, hd), device=dev))
+                what = f"wkv6 {(b, h, s, hd)} chunk {chunk}"
+                for name, got, want in (("y vs plain", y, py),
+                                        ("state vs plain", st, pst),
+                                        ("y vs sequential", y, sy),
+                                        ("state vs sequential", st, sst)):
+                    wkv_check(got, want, WKV_TOL, f"{what} {name}")
+                n += 1
+        # the training shape with bf16 r, k, v, as the model passes them:
+        # the kernel on their float32 casts (as `ops` launches it) against
+        # the plain version at WKV_TOL; `ops`'s y is that y rounded to
+        # bf16, its state that state, exactly
+        b, h, s, hd = WKV_SHAPES[-1][0]
+        r, k, v, logw, u = wkv_inputs(gen, b, h, s, hd, bf16)
+        f = [wkv_ops._f32(a) for a in (r, k, v, logw, u)]
+        py, pst = wkv_ops.plain(*f, 64)
+        y32, st32 = wkv_kernel.wkv6(*f, chunk=64)
+        wkv_check(y32, py, WKV_TOL, "wkv6 bf16 inputs y")
+        wkv_check(st32, pst, WKV_TOL, "wkv6 bf16 inputs state")
+        y16, st16 = wkv_ops.wkv6_with_state(r, k, v, logw, u, 64)
+        if (y16.dtype != bf16 or not torch.equal(st16, st32)
+                or not torch.equal(y16, y32.to(bf16))):
+            raise RuntimeError("wkv6: ops.wkv6_with_state on bf16 inputs")
+        n += 1
+
+        # times at the training shape, float32 as the kernel takes it
+        t = {"ms": cuda_ms(lambda: wkv_kernel.wkv6(*f, chunk=64), reps=5,
+                           calls=5)[0],
+             "plain_ms": cuda_ms(lambda: wkv_ops.plain(*f, 64), reps=3,
+                                 calls=1)[0],
+             "library_ms": None}
+        # the Function's backward at the training shape with the model's
+        # bf16 r, k, v: no kernel, the recompute through the chunked path;
+        # its gradients for one dy must not depend on which forward ran
+        xs = [a.detach().requires_grad_() for a in (r, k, v, logw, u)]
+        y = wkv_ops.wkv6(*xs, 64)
+        dy = randn(gen, tuple(y.shape), bf16)
+        t["function_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, xs, dy, retain_graph=True), reps=3, calls=1)[0]
+        g_kernel = torch.autograd.grad(y, xs, dy)
+        saved = wkv_kernel.wkv6
+        wkv_kernel.wkv6 = lambda *a, chunk: wkv_ops.plain(*a, chunk)
+        try:
+            g_plain = torch.autograd.grad(wkv_ops.wkv6(*xs, 64), xs, dy)
+        finally:
+            wkv_kernel.wkv6 = saved
+        if not all(torch.equal(a, b) for a, b in zip(g_kernel, g_plain)):
+            raise RuntimeError("wkv6: the Function's gradients depend on "
+                               "which forward ran")
+        del xs, y, dy, g_kernel, g_plain
+        # the bound: the bytes, the float32 operations on the FMA pipe and
+        # the exps on the special-function units, each pipe on its own
+        n_bytes, ops, exps = wkv_work(b, h, s, hd, 64)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = max(ops / PEAK_OPS_S, exps / PEAK_SFU_S) * 1e3
+        t.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=n_bytes, flop=ops, exp=exps, bytes_ms=t_bytes,
+                 fma_ms=ops / PEAK_OPS_S * 1e3,
+                 sfu_ms=exps / PEAK_SFU_S * 1e3,
+                 max_rel_err=wkv_err["max_rel"], card=smi)
+        print(json.dumps({"wkv_parity": t}), flush=True)
+        return t, (f"{n} kernel checks passed (max abs err "
+                   f"{wkv_err['max_abs']}, relative {wkv_err['max_rel']}); "
+                   f"{t['ms']:.4f} ms per call at {(b, h, s, hd)} chunk 64 "
+                   f"(plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
+                   f"by {t['bound_by']}); the Function's backward "
+                   f"{t['function_bwd_ms']:.1f} ms")
+
+    @phase("train_rwkv")
+    def train_rwkv():
+        cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_LAYERS)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        pcfg = launch_train.PCFG
+        data = SyntheticLM(cfg.vocab_size, RWKV_SEQ, RWKV_BATCH, seed=0)
+        batch0 = {k: torch.from_numpy(v).to(dev)
+                  for k, v in data.batch(0).items()}
+        state = init_state(0, cfg, device=dev)
+
+        @contextlib.contextmanager
+        def swapped(module, name, fn):
+            saved = getattr(module, name)
+            setattr(module, name, fn)
+            try:
+                yield
+            finally:
+                setattr(module, name, saved)
+
+        def plain_kernel():
+            """The kernel's plain version in its place, under the same
+            autograd Function."""
+            return swapped(wkv_kernel, "wkv6",
+                           lambda *a, chunk: wkv_ops.plain(*a, chunk))
+
+        def sequential_path():
+            """The chunked path's WKV as the sequential one (time_mix's
+            sequential branch: float32 r, k, v in, float32 y out)."""
+            return swapped(rwkv6, "wkv_chunked",
+                           lambda r, k, v, logw, u, st, chunk=0, **kw:
+                           rwkv6.wkv_sequential(r.float(), k.float(),
+                                                v.float(), logw, u, st))
+
+        # float32 replay at full width, one step from the initial weights:
+        # the loss of the kernel path against the same with its plain
+        # version under the same Function; the gradients of both, and of
+        # the sequential path, against a float64 witness: the plain and
+        # the sequential path run in float64 (`float64_mode`), which must
+        # agree with each other to W64_TOL
+        def grads(impl="pallas", ctx=contextlib.nullcontext,
+                  params=state.params):
+            with ctx():
+                (loss, _), g = make_grad_fn(cfg32, dataclasses.replace(
+                    pcfg, attn_impl=impl))(params, batch0)
+            return float(loss), cm.flatten_paths(g)
+
+        def in_float64(ctx):
+            @contextlib.contextmanager
+            def both():
+                with float64_mode(), ctx():
+                    yield
+            return both
+
+        def leaf_errs(got, want):
+            """Each leaf's max |got - want| over its max |want|, in
+            float64."""
+            return {name: float((got[name].double() - w).abs().max()
+                                / w.abs().max().clamp_min(1e-300))
+                    for name, w in want.items()}
+
+        params64 = cm.map_tree(lambda t: t.double(), state.params)
+        l64, g64 = grads(ctx=in_float64(plain_kernel), params=params64)
+        l64s, g64s = grads("chunked", in_float64(sequential_path), params64)
+        err64 = leaf_errs(g64s, g64)
+        del g64s, params64
+        lk, gk = grads()
+        err_k = leaf_errs(gk, g64)
+        lp, gp = grads(ctx=plain_kernel)
+        err_p = leaf_errs(gp, g64)
+        grad_err32 = leaf_errs(gk, gp)
+        del gk
+        ls, gs = grads("chunked", sequential_path)
+        err_s = leaf_errs(gs, g64)
+        gap32 = max(leaf_errs(gs, gp).values())
+        del gs, gp, g64
+        loss_err32 = abs(lk - lp) / abs(lp)
+        worst64, worst_k = max(err64.values()), max(err_k.values())
+        floor32 = max(*err_p.values(), *err_s.values())
+        tol32 = max(TRAIN_GRAD_TOL_F32, 1.5 * floor32)
+
+        step_fn = make_train_step(cfg, pcfg, total=RWKV_STEPS)
+        per_step = []
+
+        def counted(st, batch):
+            """The step, with the kernel calls it made recorded."""
+            w0 = wkv_kernel.wkv6.launches
+            out = step_fn(st, batch)
+            per_step.append(wkv_kernel.wkv6.launches - w0)
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        wkv_kernel.wkv6.launches = 0
+        t0 = time.perf_counter()
+        state, hist = train_loop.train(
+            state, counted, data, train_loop.LoopConfig(
+                total_steps=RWKV_STEPS, log_every=1),
+            log=lambda line: print(f"  {line}", flush=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wkv_kernel.wkv6.launches
+        # per step: once per layer, and once more in the layer's recompute
+        # (remat "full"); the backward recomputes through the chunked path
+        want_step = 2 * cfg.n_layers
+        if (launches != RWKV_STEPS * want_step
+                or any(c != want_step for c in per_step)):
+            raise RuntimeError(f"train_rwkv: wkv6 launches {launches} (per "
+                               f"step {per_step}), want "
+                               f"{RWKV_STEPS * want_step}")
+        losses = hist["losses"]
+        if len(losses) != RWKV_STEPS or not np.isfinite(losses).all():
+            raise RuntimeError(f"train_rwkv: losses {losses}")
+        step_ms = sorted(hist["step_s"][2:])
+        med_ms = 1e3 * (step_ms[1] + step_ms[2]) / 2   # median of steps 3-6
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        prof = step_profile(counted, state, data.batch(RWKV_STEPS))
+        busy = prof["device_busy_ms"]
+        prof["device_busy_share"] = (busy / med_ms if busy != "not measured"
+                                     else busy)
+
+        # the trained weights, forward only: the bf16 loss of the kernel
+        # path against the chunked path, and the bf16 noise floor (chunked
+        # vs sequential)
+        def loss_of(impl, ctx=contextlib.nullcontext):
+            pc = dataclasses.replace(pcfg, attn_impl=impl)
+            with ctx(), torch.no_grad():
+                h, _ = rwkv6.forward(state.params, batch0, cfg, pc)
+                return float(chunked_lm_loss(state.params, h,
+                                             batch0["labels"], cfg,
+                                             chunk=pc.logit_chunk))
+        l16 = {"kernel": loss_of("pallas"), "chunked": loss_of("chunked"),
+               "sequential": loss_of("chunked", sequential_path)}
+        floor16 = abs(l16["chunked"] - l16["sequential"])
+        tol16 = max(TRAIN_LOSS_TOL_BF16, 1.5 * floor16)
+        gap16 = abs(l16["kernel"] - l16["chunked"])
+        del state
+        replay = {"bf16_losses": l16, "bf16_gap": gap16,
+                  "bf16_floor_chunked_vs_sequential": floor16,
+                  "bf16_tolerance": tol16, "f32_loss_kernel": lk,
+                  "f32_loss_plain": lp, "f32_loss_sequential": ls,
+                  "f64_loss_plain": l64, "f64_loss_sequential": l64s,
+                  "f32_loss_rel_err": loss_err32,
+                  "f64_grad_plain_vs_sequential_max": worst64,
+                  "f64_grad_tolerance": W64_TOL,
+                  "f32_grad_kernel_vs_f64_max": worst_k,
+                  "f32_grad_plain_vs_f64_max": max(err_p.values()),
+                  "f32_grad_sequential_vs_f64_max": max(err_s.values()),
+                  "f32_grad_tolerance": tol32,
+                  "f32_grad_kernel_vs_plain_max": max(grad_err32.values()),
+                  "f32_grad_plain_vs_sequential_max": gap32,
+                  "f32_grad_kernel_vs_f64": err_k,
+                  "f32_grad_plain_vs_f64": err_p,
+                  "f32_grad_sequential_vs_f64": err_s,
+                  "f64_grad_plain_vs_sequential": err64}
+        print(json.dumps({"train_rwkv_replay": replay}), flush=True)
+        if not (gap16 <= tol16 and loss_err32 <= TRAIN_LOSS_TOL_F32
+                and worst64 <= W64_TOL and worst_k <= tol32):
+            raise RuntimeError(
+                f"train_rwkv: kernel path: bf16 loss gap {gap16} to the "
+                f"chunked path (tolerance {tol16}), float32 loss "
+                f"{loss_err32} (tolerance {TRAIN_LOSS_TOL_F32}), float32 "
+                f"grads {worst_k} from the float64 witness (tolerance "
+                f"{tol32}); the witness's two paths {worst64} apart "
+                f"(tolerance {W64_TOL})")
+        st = {"arch": RWKV_ARCH, "n_layers": cfg.n_layers,
+              "params": cfg.n_params(), "batch": RWKV_BATCH,
+              "seq": RWKV_SEQ, "steps": RWKV_STEPS, "losses": losses,
+              "step_ms": [1e3 * x for x in hist["step_s"]],
+              "step_ms_median_3_6": med_ms,
+              "tokens_per_s": RWKV_BATCH * RWKV_SEQ / med_ms * 1e3,
+              "wall_s": wall, "peak_memory_gb": peak_gb,
+              "launches": launches, "launches_per_step": want_step,
+              "profile": prof, "replay_f32_grad_vs_f64": worst_k,
+              "replay_f32_loss_rel_err": loss_err32,
+              "replay_f32_grad_tolerance": tol32, "bf16_loss_gap": gap16,
+              "bf16_tolerance": tol16, "card": smi}
+        print(json.dumps({"train_rwkv": st}), flush=True)
+        return st, (
+            f"{RWKV_ARCH} ({cfg.n_layers} layers) B{RWKV_BATCH} x "
+            f"{RWKV_SEQ}: step {med_ms:.1f} ms, {st['tokens_per_s']:.0f} "
+            f"tok/s, peak {peak_gb:.1f} GB ({smi}); wkv6 launches "
+            f"{launches}; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"float32 replay grads {worst_k:.2e} from float64 (plain and "
+            f"sequential paths {floor32:.2e}; float64 paths {worst64:.1e} "
+            f"apart), loss {loss_err32:.2e}; bf16 loss gap {gap16:.2e} (floor "
+            f"{floor16:.2e})")
+
     t_start = time.perf_counter()
     smi = card()
     build()
@@ -1198,6 +1726,9 @@ def main() -> int:
     sim_stats = serve_sim(cap)
     bwd = attn_bwd_parity()
     train_stats = train()
+    pipe = pipe_parity()
+    wkv = wkv_parity()
+    rwkv_stats = train_rwkv()
 
     @phase("kernels")
     def kernels():
@@ -1242,9 +1773,32 @@ def main() -> int:
             "launches": serve_stats["launches"]["decode"],
             "max_abs_err": attn_err["decode"], **attn["decode"],
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
+            "check": "ok"}, {
+            "name": "smla_pipe_cascaded", "route": "cuda",
+            "source": "src/repro_torch/csrc/smla_pipe.cu",
+            "replaces": "src/repro/kernels/smla_pipe/kernel.py:54",
+            "max_abs_err": pipe_err["cascaded"], **pipe["cascaded"],
+            "shape": "x (8192,2048) @ w (4,512,5632) float32 "
+                     "(smla_pipe_bench, realistic)",
+            "check": "ok"}, {
+            "name": "smla_pipe_dedicated", "route": "cuda",
+            "source": "src/repro_torch/csrc/smla_pipe.cu",
+            "replaces": "src/repro/kernels/smla_pipe/kernel.py:86",
+            "max_abs_err": pipe_err["dedicated"], **pipe["dedicated"],
+            "shape": "x (8192,2048) @ w (4,512,5632) float32: 4 launches + "
+                     "a sum",
+            "check": "ok"}, {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/kernel.py:74",
+            "launches": rwkv_stats["launches"],
+            "max_abs_err": wkv_err["max_abs"],
+            **{k: wkv[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_rel_err")},
+            "shape": "r/k/v/logw (4,40,2048,64) float32, chunk 64",
             "check": "ok"}]}
         print(json.dumps(line), flush=True)
-        return None, "4 kernels, all checks passed"
+        return None, f"{len(line['kernels'])} kernels, all checks passed"
 
     kernels()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -271,9 +271,10 @@ class ParallelConfig:
     grad_compression: str = "none"       # none | int8
     # naive | chunked | pallas.  In this package "pallas" selects the
     # hand-written Hopper CUDA kernels that replace the reference's Pallas
-    # ones: kernels/flash_attention (prefill on a fresh cache) and
-    # kernels/decode_attention (every decode step); on CPU tensors they
-    # run their plain PyTorch versions (ref.py).
+    # ones: kernels/flash_attention (prefill on a fresh cache, training),
+    # kernels/decode_attention (every decode step) and kernels/wkv6
+    # (RWKV6's forward on a fresh sequence, training); on CPU tensors they
+    # run their plain PyTorch versions.
     attn_impl: str = "chunked"
     attn_chunk: int = 1024
     moe_impl: str = "shard_map"   # shard_map | dense

@@ -8,7 +8,8 @@ Runs on ``cuda`` unless ``--device cpu`` is given, with
 ``attn_impl="pallas"``: the hand-written Hopper kernels for prefill
 (flash attention) and decode (flash-decode); on the CPU their plain
 versions.  (The reference launcher's ``"chunked"`` is an XLA path with no
-kernel.)  ``--ckpt-dir`` serves the params of the latest checkpoint there
+kernel.)  ``--arch rwkv6-3b`` serves RWKV-6, whose prefill and decode run
+no kernel, as in the reference.  ``--ckpt-dir`` serves the params of the latest checkpoint there
 (written by either package's ``train/checkpoint.py``).
 """
 from __future__ import annotations

@@ -6,8 +6,9 @@
 
 Runs on ``cuda`` unless ``--device cpu`` is given, with
 ``attn_impl="pallas"`` (the hand-written Hopper kernels: flash attention
-forward and backward; on the CPU their plain versions) and
-``remat="full"`` (each layer recomputed in the backward).  The reference
+forward and backward for the transformer, WKV6 for ``--arch rwkv6-3b``;
+on the CPU their plain versions) and ``remat="full"`` (each layer
+recomputed in the backward).  The reference
 launcher's default ``"chunked"`` is an XLA path with no kernel.
 ``--distributed`` (multi-host, a mesh) waits for Slice F (ROADMAP) and
 raises.

@@ -8,8 +8,9 @@ Every family module exposes the same functional API:
   prefill(params, batch, cache, cfg, pcfg) -> (cache, last_hidden (B,1,d))
   decode(params, tokens (B,1), cache, cfg, pcfg) -> (cache, logits (B,1,V))
 plus transformer.logits_fn for the LM head.  Ported so far: the dense
-transformer (the VLM family shares it and raises at M-RoPE); the other
-families raise until their slice (ROADMAP Slice D).
+transformer (the VLM family shares it and raises at M-RoPE) and RWKV6
+(the ssm family); the other families raise until their slice (ROADMAP
+Slice D).
 """
 from __future__ import annotations
 
@@ -17,12 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.transformer import logits_fn  # noqa: F401
 
 _FAMILY = {
     "dense": transformer,
     "vlm": transformer,
+    "ssm": rwkv6,
 }
 
 

@@ -44,15 +44,20 @@ def _is_norm(path: str) -> bool:
     return "norm" in leaf or leaf in ("scale", "ln_x")
 
 
+#: leaves the models read in float32 besides the norms: RWKV6's bonus u
+_FLOAT32_LEAVES = ("bonus",)
+
+
 def cast_weights(params: Params, cfg, device=None) -> Params:
     """The tree on `device` (default: where it is) with every weight the
-    model casts at use (projections, MLP, embedding table, head) already
-    in the compute dtype; norm scales, which the model reads in float32,
-    stay float32."""
+    model casts at use (projections, MLP, token-shift mixes, embedding
+    table, head) already in the compute dtype; norm scales and RWKV6's
+    bonus, which the models read in float32, stay float32."""
     tree: dict = {}
     for path, leaf in flatten_paths(params).items():
         leaf = leaf.to(device) if device is not None else leaf
-        _set(tree, path, leaf if _is_norm(path) else cast(leaf, cfg))
+        keep = _is_norm(path) or path.split(".")[-1] in _FLOAT32_LEAVES
+        _set(tree, path, leaf if keep else cast(leaf, cfg))
     return tree
 
 
@@ -92,17 +97,20 @@ def init_embed(gen, shape, device) -> torch.Tensor:
 def init_from_shapes(gen: torch.Generator, shapes: dict[str, tuple[int, ...]],
                      device="cuda") -> Params:
     """Build a nested param dict from a flat {dotted.path: shape} table,
-    with the reference's distributions: ones for norms, 0.02 x truncated
-    normal for the embedding, fan-in truncated normal for dense weights.
-    `gen` draws on `device`.  (The dense families this package ports use
-    no other leaf kinds.)  JAX's random bits cannot be reproduced, so
-    parity tests load the reference's params (`convert`)."""
+    with the reference's distributions: ones for norms, 0.5 for RWKV6's
+    token-shift mixes (``mu``) and bonus, 0.02 x truncated normal for the
+    embedding, fan-in truncated normal for dense weights.  `gen` draws on
+    `device`.  (The families this package ports use no other leaf kinds.)
+    JAX's random bits cannot be reproduced, so parity tests load the
+    reference's params (`convert`)."""
     dev = check_device(device)
     tree: dict = {}
     for path, shape in sorted(shapes.items()):
         leaf_name = path.split(".")[-1]
         if _is_norm(path):
             val = torch.ones(shape, dtype=PARAM_DTYPE, device=dev)
+        elif leaf_name in ("mu", "bonus"):
+            val = torch.full(shape, 0.5, dtype=PARAM_DTYPE, device=dev)
         elif leaf_name == "tokens" or path.startswith("embed"):
             val = init_embed(gen, shape, dev)
         else:

@@ -169,7 +169,9 @@ def test_unported_families_raise():
         PT.init(0, reduce_config(get_config("granite-moe-3b-a800m")),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="Slice D"):
-        port_models.get_model(get_config("rwkv6-3b"))
+        port_models.get_model(get_config("zamba2-7b"))
+    with pytest.raises(NotImplementedError, match="not a transformer"):
+        PT.init(0, reduce_config(get_config("rwkv6-3b")), device="cpu")
 
 
 def test_cuda_without_card_raises():
