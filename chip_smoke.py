@@ -11,7 +11,7 @@ Phases (each prints one line with its seconds; any failed check raises
 and the script exits non-zero):
 
 1. card      the GPU's name and power limit (nvidia-smi) and CUDA version.
-2. build     nvcc builds the six kernel libraries from
+2. build     nvcc builds the eight kernel libraries from
              ``src/repro_torch/csrc``, all at once.
 3. golden    the golden grid (``tests/golden/smla_small_grid.json``)
              through ``run_sweep`` on the kernel: ints exact, floats to
@@ -35,10 +35,15 @@ and the script exits non-zero):
              their plain versions on the card: flash at (B 8, Hq 32,
              Hkv 4, hd 64) and (B 2, Hq 16, Hkv 8, hd 128), S in {256,
              192}, bf16 and float32, causal and full (`o` and `lse`);
-             decode at Smax in {512, 300} with mixed lengths, bf16, and
-             finite garbage past the lengths must change nothing.  Each
-             kernel is timed beside its plain version and one PyTorch
-             call as a yardstick (SDPA; the port never calls it).
+             the bf16 tensor-core kernel's edges at (B 2, Hq 8, Hkv 2):
+             hd 16, 32, 64 and 128 x S in {1, 200, 2000} (and 192, 256
+             at hd 16 and 32), causal and full; one call of each dtype
+             with the route counts read, so float32 shows it still runs
+             the CUDA-core kernel (held at 1e-5); decode at Smax in
+             {512, 300} with mixed lengths, bf16, and finite garbage
+             past the lengths must change nothing.  Each kernel is timed
+             beside its plain version and one PyTorch call as a
+             yardstick (SDPA; the port never calls it).
 7. serve     the serving path at full width: tinyllama-1.1b (22 layers,
              d 2048, 32/4 heads, bf16), random weights from a seeded
              generator, `Engine` with attn_impl "pallas", 8 requests of
@@ -64,10 +69,14 @@ and the script exits non-zero):
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
              a ragged S 200, bf16 and float32, causal and full (dq, dk,
-             dv); and gradients through `ops.flash_attention`'s autograd
-             Function against autograd through the plain forward.  The
-             kernel is timed beside its plain version and the backward of
-             SDPA (a yardstick; the port never calls it).
+             dv); the bf16 tensor-core kernels' edges, the forward's cases
+             above; every bf16 call twice, bit-identical; and gradients
+             through `ops.flash_attention`'s autograd Function against
+             autograd through the plain forward, float32 (1e-5) and bf16
+             (2^-7 of max |g|).  The kernel is timed beside its plain
+             version and the backward of SDPA, and the forward at the
+             same shape beside SDPA's forward (yardsticks; the port never
+             calls SDPA).
 10. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
@@ -176,6 +185,17 @@ SERVE_TOL_F32 = 1e-3
 
 #: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd)
 BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64))
+#: the bf16 tensor-core kernels' edges, forward and backward, at (B 2,
+#: Hq 8, Hkv 2): (hd, S) for every head dim, S one row, ragged at the
+#: kernels' 64-row tiles (200, 2000) and, at hd 16 and 32, the S of the
+#: cases above (192, 256)
+FLASH_EDGES = tuple((hd, s) for hd in (16, 32, 64, 128)
+                    for s in (1, 200, 2000)) + tuple(
+    (hd, s) for hd in (16, 32) for s in (192, 256))
+#: bf16 products against the plain version: this fraction of max |o| or
+#: of max |g| (one bf16 ulp; the kernels round P and dS to bf16 before
+#: their products, and the sums run in another order)
+BF16_TOL = 2 ** -7
 #: the training config and run of phase `train` (TinyLlama's published
 #: context, 2048 tokens)
 TRAIN_ARCH = "tinyllama-1.1b"
@@ -488,6 +508,8 @@ def main() -> int:
         builds = {cuda_engine.KERNEL_SOURCES: cuda_engine.build,
                   fa_kernel.KERNEL_SOURCES: fa_kernel.build,
                   fa_kernel.BWD_SOURCES: fa_kernel.build_bwd,
+                  fa_kernel.TC_SOURCES: fa_kernel.build_tc,
+                  fa_kernel.TC_BWD_SOURCES: fa_kernel.build_bwd_tc,
                   dec_kernel.KERNEL_SOURCES: dec_kernel.build,
                   pipe_kernel.KERNEL_SOURCES: pipe_kernel.build,
                   wkv_kernel.KERNEL_SOURCES: wkv_kernel.build}
@@ -716,6 +738,40 @@ def main() -> int:
                               1e-5 if dt == f32 else 1e-4, what + " lse",
                               "flash")
                         n += 1
+        # the bf16 tensor-core kernel's edges: every head dim, one row,
+        # S ragged at its 64-row tiles
+        for hd, s_len in FLASH_EDGES:
+            for causal in (True, False):
+                q = randn(gen, (2, s_len, 8, hd), bf16)
+                k = randn(gen, (2, s_len, 2, hd), bf16)
+                v = randn(gen, (2, s_len, 2, hd), bf16)
+                o, lse = fa_kernel.flash_attention_fwd(q, k, v,
+                                                       causal=causal)
+                want_o, want_lse = flash_plain(q, k, v, causal)
+                what = f"flash edge hd{hd} S{s_len} causal={causal}"
+                check(max_abs(o, want_o),
+                      BF16_TOL * float(want_o.float().abs().max()),
+                      what + " o", "flash")
+                check(max_abs(lse, want_lse), 1e-4, what + " lse", "flash")
+                n += 1
+        # the route of each dtype, read from the wrapper's counts: bf16
+        # on the tensor cores, float32 still on the CUDA cores (1e-5)
+        for dt, path in ((bf16, "tensor_core"), (f32, "cuda_core")):
+            q = randn(gen, (2, 200, 8, 64), dt)
+            k = randn(gen, (2, 200, 2, 64), dt)
+            v = randn(gen, (2, 200, 2, 64), dt)
+            before = dict(fa_kernel.flash_attention_fwd.route_launches)
+            o, _ = fa_kernel.flash_attention_fwd(q, k, v)
+            after = fa_kernel.flash_attention_fwd.route_launches
+            moved = {r: after[r] - before[r] for r in after}
+            if moved != {r: int(r == path) for r in after}:
+                raise RuntimeError(f"flash {dt}: route launches {moved}, "
+                                   f"want one on {path}")
+            want_o = flash_plain(q, k, v)[0]
+            check(max_abs(o, want_o), 1e-5 if dt == f32 else
+                  BF16_TOL * float(want_o.float().abs().max()),
+                  f"flash route {path}", "flash")
+            n += 1
         b, hq, hkv, hd = 8, 32, 4, 64
         for smax in (512, 300):
             q = randn(gen, (b, 1, hq, hd), bf16)
@@ -790,6 +846,19 @@ def main() -> int:
 
     bwd_err = {"max_abs": 0.0, "max_rel": 0.0}
 
+    def bwd_twice(q, k, v, o, lse, do, causal):
+        """The backward kernel's gradients; in bf16 it runs twice and the
+        two must agree bit for bit (no atomics: one fixed order)."""
+        got = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal)
+        if q.dtype == bf16:
+            again = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"flash bwd {tuple(q.shape)} causal="
+                                   f"{causal}: two calls differ")
+        return got
+
     @phase("attn_bwd_parity")
     def attn_bwd_parity():
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -803,8 +872,7 @@ def main() -> int:
                     do = randn(gen, (b, s_len, hq, hd), dt)
                     o, lse = fa_kernel.flash_attention_fwd(q, k, v,
                                                            causal=causal)
-                    got = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
-                                                        causal=causal)
+                    got = bwd_twice(q, k, v, o, lse, do, causal)
                     want = flash_bwd_plain(q, k, v, o, lse, do, causal)
                     # float32: 1e-5 of max |grad| (sums in another
                     # order); bf16: one bf16 ulp at max |grad|
@@ -824,10 +892,48 @@ def main() -> int:
                                                  max_abs(g, w))
                     n += 1
 
+        # the bf16 tensor-core kernels' edges, as in attn_parity.  At
+        # S = 1, dq and dk are zero in exact arithmetic and both sides
+        # hold only rounding noise: there they are held to BF16_TOL of
+        # max |dv| instead of their own max
+        for hd, s_len in FLASH_EDGES:
+            for causal in (True, False):
+                q, do = (randn(gen, (2, s_len, 8, hd), bf16)
+                         for _ in range(2))
+                k, v = (randn(gen, (2, s_len, 2, hd), bf16)
+                        for _ in range(2))
+                o, lse = fa_kernel.flash_attention_fwd(q, k, v,
+                                                       causal=causal)
+                got = bwd_twice(q, k, v, o, lse, do, causal)
+                want = flash_bwd_plain(q, k, v, o, lse, do, causal)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    scale = want[2] if s_len == 1 else w
+                    err = max_abs(g, w) / max(
+                        float(scale.float().abs().max()), 1e-30)
+                    if not err <= BF16_TOL:
+                        raise RuntimeError(
+                            f"flash bwd edge hd{hd} S{s_len} causal="
+                            f"{causal} {name}: relative error {err} > "
+                            f"{BF16_TOL}")
+                    bwd_err["max_rel"] = max(bwd_err["max_rel"], err)
+                    bwd_err["max_abs"] = max(bwd_err["max_abs"],
+                                             max_abs(g, w))
+                n += 1
+        # float32 still runs the CUDA-core backward (held at 1e-5 above)
+        q, do = (randn(gen, (2, 200, 8, 64), f32) for _ in range(2))
+        k, v = (randn(gen, (2, 200, 2, 64), f32) for _ in range(2))
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v)
+        before = dict(fa_kernel.flash_attention_bwd.route_launches)
+        fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+        moved = {r: fa_kernel.flash_attention_bwd.route_launches[r]
+                 - before[r] for r in before}
+        if moved != {"tensor_core": 0, "cuda_core": 1}:
+            raise RuntimeError(f"flash bwd float32: route launches {moved}")
+
         # end to end: gradients through the autograd Function against
-        # autograd through the plain forward (float32, 1e-5 of max |g|);
-        # a ragged S with q/k/v strided views of one fused projection, and
-        # the training shape
+        # autograd through the plain forward (float32, 1e-5 of max |g|;
+        # bf16, BF16_TOL); a ragged S with q/k/v strided views of one
+        # fused projection, and the training shape
         def grads(x, b, s_len, hq, hkv, hd, kernel):
             q, k, v = torch.split(x, [hq * hd, hkv * hd, hkv * hd], -1)
             q, k, v = (t.view(b, s_len, -1, hd) for t in (q, k, v))
@@ -836,21 +942,22 @@ def main() -> int:
             else:
                 o = flash_plain(q, k, v, True)[0]
             return torch.autograd.grad((o.float() ** 2).sum(), x)[0]
-        e2e = 0.0
-        for b, s_len, hq, hkv, hd in ((2, 200, 8, 2, 64), BWD_SHAPES[0]):
-            x = randn(gen, (b, s_len, (hq + 2 * hkv) * hd),
-                      f32).requires_grad_()
-            fa_kernel.flash_attention_bwd.launches = 0
-            got = grads(x, b, s_len, hq, hkv, hd, True)
-            if fa_kernel.flash_attention_bwd.launches != 1:
-                raise RuntimeError("autograd did not launch the backward "
-                                   "kernel once")
-            err = rel_err(got, grads(x, b, s_len, hq, hkv, hd, False))
-            if not err <= 1e-5:
-                raise RuntimeError(f"flash autograd S{s_len}: relative "
-                                   f"error {err} > 1e-5")
-            e2e = max(e2e, err)
-            n += 1
+        e2e = {f32: 0.0, bf16: 0.0}
+        for dt, tol in ((f32, 1e-5), (bf16, BF16_TOL)):
+            for b, s_len, hq, hkv, hd in ((2, 200, 8, 2, 64), BWD_SHAPES[0]):
+                x = randn(gen, (b, s_len, (hq + 2 * hkv) * hd),
+                          dt).requires_grad_()
+                fa_kernel.flash_attention_bwd.launches = 0
+                got = grads(x, b, s_len, hq, hkv, hd, True)
+                if fa_kernel.flash_attention_bwd.launches != 1:
+                    raise RuntimeError("autograd did not launch the "
+                                       "backward kernel once")
+                err = rel_err(got, grads(x, b, s_len, hq, hkv, hd, False))
+                if not err <= tol:
+                    raise RuntimeError(f"flash autograd {dt} S{s_len}: "
+                                       f"relative error {err} > {tol}")
+                e2e[dt] = max(e2e[dt], err)
+                n += 1
 
         # times at the training path's shape, bf16, causal
         b, s_len, hq, hkv, hd = BWD_SHAPES[0]
@@ -861,8 +968,8 @@ def main() -> int:
         o, lse = fa_kernel.flash_attention_fwd(q, k, v)
         tq, tk, tv = (x.transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
-        so = torch.nn.functional.scaled_dot_product_attention(
-            tq, tk, tv, is_causal=True, enable_gqa=True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        so = sdpa(tq, tk, tv, is_causal=True, enable_gqa=True)
         tdo = do.transpose(1, 2)
         bw = {"ms": cuda_ms(lambda: fa_kernel.flash_attention_bwd(
                   q, k, v, o, lse, do), reps=5, calls=5)[0],
@@ -872,16 +979,23 @@ def main() -> int:
                   so, (tq, tk, tv), tdo, retain_graph=True),
                   reps=5, calls=5)[0],
               "fwd_ms": cuda_ms(lambda: fa_kernel.flash_attention_fwd(
-                  q, k, v), reps=5, calls=5)[0]}
+                  q, k, v), reps=5, calls=5)[0],
+              "fwd_library_ms": cuda_ms(lambda: sdpa(
+                  tq, tk, tv, is_causal=True, enable_gqa=True),
+                  reps=5, calls=5)[0]}
         bw["bound_ms"], bw["bound_by"] = attn_bound_ms(*flash_bwd_work(q, k))
         bw["fwd_bound_ms"] = attn_bound_ms(*flash_work(q, k))[0]
-        bw["autograd_rel_err"] = e2e
+        bw["autograd_rel_err"] = e2e[f32]
+        bw["autograd_rel_err_bf16"] = e2e[bf16]
         print(json.dumps({"attn_bwd_parity": bw}), flush=True)
         return bw, (f"{n} backward checks passed (max relative err "
-                    f"{bwd_err['max_rel']}, autograd {e2e}); bwd "
+                    f"{bwd_err['max_rel']}, autograd {e2e[f32]} float32, "
+                    f"{e2e[bf16]} bf16); bwd "
                     f"{bw['ms']:.4f} ms per call at B{b} S{s_len} Hq{hq} "
                     f"(plain {bw['plain_ms']:.4f}, SDPA backward "
-                    f"{bw['library_ms']:.4f}, bound {bw['bound_ms']:.5f})")
+                    f"{bw['library_ms']:.4f}, bound {bw['bound_ms']:.5f}); "
+                    f"fwd {bw['fwd_ms']:.4f} ms (SDPA "
+                    f"{bw['fwd_library_ms']:.4f})")
 
     def decode_profile(eng, prefill_fn, decode_fn, tokens, out, n=8):
         """`n` decode steps of the serving run under torch.profiler: the
@@ -1748,7 +1862,8 @@ def main() -> int:
             "serve_sim_kernel_ms": sim_stats["kernel_ms"],
             "check": "ok"}, {
             "name": "flash_attention_fwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
+            "source": "src/repro_torch/csrc/flash_attention_fwd_tc.cu",
+            "float32_source": "src/repro_torch/csrc/flash_attention_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
             "launches": serve_stats["launches"]["flash"],
             "train_launches": train_stats["launches"]["flash"],
@@ -1756,9 +1871,11 @@ def main() -> int:
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
             "train_shape_bound_ms": bwd["fwd_bound_ms"],
+            "train_shape_library_ms": bwd["fwd_library_ms"],
             "check": "ok"}, {
             "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+            "float32_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:219",
             "launches": train_stats["launches"]["flash_bwd"],
             "max_abs_err": bwd_err["max_abs"],

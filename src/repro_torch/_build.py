@@ -79,6 +79,10 @@ def bind(lib: ctypes.CDLL, fn_name: str, n_ptrs: int, extra=()):
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on `device`, as the launchers take it."""
+    """PyTorch's current stream on `device`, as the launchers take it (the
+    raw handle, without building a ``torch.cuda.Stream``: launchers call
+    this once per launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

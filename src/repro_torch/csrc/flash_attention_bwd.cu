@@ -1,5 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a): dq, dk and dv of causal
-// or full GQA attention, from the forward's o (through delta) and lse.
+// Flash-attention backward for Hopper (sm_90a), float32, on the CUDA
+// cores: dq, dk and dv of causal or full GQA attention, from the
+// forward's o (through delta) and lse.  bf16 inputs, the dtype of the
+// training path, go to flash_attention_bwd_tc.cu (tensor cores); this
+// kernel serves the float32 replay, whose 1e-5 tolerance on every
+// gradient leaf TF32 products could not meet.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention/kernel.py:
 // flash_attention_bwd (_bwd_dkv_kernel, _bwd_dq_kernel).  Those walk a
@@ -30,8 +34,7 @@
 // CUDA cores out of shared memory, seven products instead of five (s and
 // dp are computed in both kernels), with each thread holding a 4 x 4
 // micro-tile of the score tile so that every shared-memory load feeds two
-// FMAs.  Tensor cores (mma/wgmma) and one kernel with a dq write-back are
-// a later PR's work; this one makes it right.
+// FMAs.
 //
 // Layout: the model's (B, S, H, hd) for q, k, v, do, dq, dk, dv, read and
 // written through strides; lse and delta (B, Hq, S) float32, contiguous.
@@ -347,55 +350,39 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, void* dk, void* dv, const long long* st,
-                      int B, int S, int Hq, int Hkv, int causal, float scale,
-                      cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S,
-                           Hq, Hkv, causal, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S,
-                           Hq, Hkv, causal, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S,
-                           Hq, Hkv, causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S,
-                            Hq, Hkv, causal, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// q, do, dq (B,S,Hq,hd) and k, v, dk, dv (B,S,Hkv,hd): all of one dtype
-// (dtype 0 = float32, 1 = bfloat16), last dim contiguous; `strides` holds
-// 21 element strides (dims 0-2 of q, k, v, do, dq, dk, dv).  lse and delta
-// (B,Hq,S) float32, contiguous.  Launches the dk/dv kernel, then the dq
-// kernel, on `stream`; returns the first launch error, else
-// cudaGetLastError().
+// q, do, dq (B,S,Hq,hd) and k, v, dk, dv (B,S,Hkv,hd): float32, last dim
+// contiguous; `strides` holds 21 element strides (dims 0-2 of q, k, v,
+// do, dq, dk, dv).  lse and delta (B,Hq,S) float32, contiguous.  Launches
+// the dk/dv kernel, then the dq kernel, on `stream`; returns the first
+// launch error, else cudaGetLastError().
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, void* dk,
                                void* dv, const void* strides, int B, int S,
-                               int Hq, int Hkv, int hd, int dtype, int causal,
+                               int Hq, int Hkv, int hd, int causal,
                                float scale, void* stream) {
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, dout, lse, delta, dq, dk, dv, st, B,
-                            S, Hq, Hkv, causal, scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dq, dk, dv,
-                                    st, B, S, Hq, Hkv, causal, scale, s);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16:
+      return launch<float, 16>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
+                               S, Hq, Hkv, causal, scale, s);
+    case 32:
+      return launch<float, 32>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
+                               S, Hq, Hkv, causal, scale, s);
+    case 64:
+      return launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
+                               S, Hq, Hkv, causal, scale, s);
+    case 128:
+      return launch<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
+                                S, Hq, Hkv, causal, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,5 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): causal or full GQA
-// attention with an online softmax, returning (o, lse).
+// Flash-attention forward for Hopper (sm_90a), float32, on the CUDA
+// cores: causal or full GQA attention with an online softmax, returning
+// (o, lse).  bf16 inputs, the dtype of the serving and training paths,
+// go to flash_attention_fwd_tc.cu (tensor cores); this kernel serves the
+// float32 replays, whose 1e-5 tolerances TF32 products could not meet.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // flash_attention_fwd (_fwd_kernel).  That kernel walks a sequential
@@ -15,8 +18,7 @@
 // staged once per block in shared memory and read by all 64 q rows of
 // the tile, and when causal the loop stops at the diagonal tile, so
 // tiles above it are never read (the reference's skip never fires).
-// It computes in float32 on the CUDA cores (no wgmma/TMA yet): a later
-// PR makes it fast; this one makes it right.
+// It computes in float32 on the CUDA cores.
 //
 // Layout: the model's (B, S, H, hd), read and written through strides,
 // so the caller makes no transposed copy.  The kv head of q head h is
@@ -163,51 +165,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, void* lse, const long long* strides, int B,
-                      int S, int Hq, int Hkv, int causal, float scale,
-                      cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, strides, B, S, Hq, Hkv, causal,
-                           scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, strides, B, S, Hq, Hkv, causal,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, strides, B, S, Hq, Hkv, causal,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, strides, B, S, Hq, Hkv, causal,
-                            scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// q (B,S,Hq,hd), k/v (B,S,Hkv,hd), o (B,S,Hq,hd): all of one dtype
-// (dtype 0 = float32, 1 = bfloat16), last dim contiguous; `strides` holds
-// 12 element strides (dims 0-2 of q, k, v, o).  lse (B,Hq,S) float32,
-// contiguous.  Launches on `stream`; returns cudaGetLastError().
+// q (B,S,Hq,hd), k/v (B,S,Hkv,hd), o (B,S,Hq,hd): float32, last dim
+// contiguous; `strides` holds 12 element strides (dims 0-2 of q, k, v,
+// o).  lse (B,Hq,S) float32, contiguous.  Launches on `stream`; returns
+// cudaGetLastError().
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, void* lse, const void* strides,
                                int B, int S, int Hq, int Hkv, int hd,
-                               int dtype, int causal, float scale,
-                               void* stream) {
+                               int causal, float scale, void* stream) {
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
-                            scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, st, B, S, Hq, Hkv,
-                                    causal, scale, s);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16:
+      return launch<float, 16>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
+                               scale, s);
+    case 32:
+      return launch<float, 32>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
+                               scale, s);
+    case 64:
+      return launch<float, 64>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
+                               scale, s);
+    case 128:
+      return launch<float, 128>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
+                                scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

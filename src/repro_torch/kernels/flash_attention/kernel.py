@@ -1,30 +1,41 @@
 """Flash attention on Hopper: the wrappers of the hand-written CUDA kernels
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``, which
-replace the reference's Pallas kernels ``repro/kernels/flash_attention/
-kernel.py::flash_attention_fwd`` and ``::flash_attention_bwd``.
+that replace the reference's Pallas kernels ``repro/kernels/
+flash_attention/kernel.py::flash_attention_fwd`` and
+``::flash_attention_bwd``.
 
-The forward reads q, k and v in the model's (B, S, H, hd) layout through
-their strides (no transposed copies), gives one block to each (batch,
-q head, 64-row q tile), stages each 64-row k/v tile once in shared
-memory, keeps m, l and the accumulator in float32, and when causal stops
-at the diagonal tile.  The backward is two kernels launched by one call:
-dk/dv with one block per (batch, kv head, 64-row kv tile), which walks
-the group's q heads and q tiles and so sums GQA into the kv heads
-itself, and dq with one block per (batch, q head, q tile).  Both are
-deterministic (no atomics).  Any S is right: ragged last tiles are
+Each dtype has one kernel of each direction (`route`): bfloat16, the
+dtype of the serving and training paths, runs on the tensor cores
+(``csrc/flash_attention_fwd_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``:
+wgmma products, P and dS rounded to bf16, float32 softmax and
+accumulators); float32, which the float32 replays hold to 1e-5, runs on
+the CUDA cores (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``).  The route is chosen by dtype, not as
+a fallback: a failed launch raises.
+
+Both read q, k and v in the model's (B, S, H, hd) layout through their
+strides (no transposed copies).  The forward gives one block to each
+(batch, q head, q tile), keeps m, l and the accumulator in float32, and
+when causal stops at the diagonal tile.  The backward is two kernels
+launched by one call: dk/dv with one block per (batch, kv head, kv tile),
+which walks the group's q heads and q tiles and so sums GQA into the kv
+heads itself, and dq with one block per (batch, q head, q tile).  Both
+are deterministic (no atomics).  Any S is right: ragged last tiles are
 masked.  The kernels' sources say what bounds them and what their design
 does about that.
 
 Build: route (b) (`repro_torch._build`), at first use, one library for
-each direction.  The wrappers check device, dtype (float32, bfloat16),
-head dim (16, 32, 64, 128) and strides, allocate the outputs with
-``torch.empty``, launch on PyTorch's current stream and raise if a launch
-fails.  ``flash_attention_fwd.launches`` and
+each direction and dtype.  The wrappers check device, dtype, head dim
+(16, 32, 64, 128) and strides (bf16: 16-byte-aligned bases, strides a
+multiple of 8, as the kernels' 16-byte loads need), allocate the outputs
+with ``torch.empty``, launch on PyTorch's current stream and raise if a
+launch fails.  ``flash_attention_fwd.launches`` and
 ``flash_attention_bwd.launches`` count their calls (a backward call
-launches its two kernels and counts one).
+launches its two kernels and counts one), and ``.route_launches`` the
+same calls by route.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -37,29 +48,66 @@ from repro_torch._build import (NVCC_FLAGS, bind, compile_library, nvcc,
 
 KERNEL_SOURCES = ("attention_common.cuh", "flash_attention_fwd.cu")
 BWD_SOURCES = ("attention_common.cuh", "flash_attention_bwd.cu")
+TC_SOURCES = ("attention_common.cuh", "attention_tc.cuh",
+              "flash_attention_fwd_tc.cu")
+TC_BWD_SOURCES = ("attention_common.cuh", "attention_tc.cuh",
+                  "flash_attention_bwd_tc.cu")
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernels' grids put heads on y and the batch on z
+#: the kernels of each dtype: bf16 on the tensor cores, float32 on the
+#: CUDA cores
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+#: the kernels' grids put (batch, head) pairs and q tiles on x, at most
+#: 2^31 - 1 blocks (the tensor-core kernels), or heads on y and the batch
+#: on z, at most 65535 each (the CUDA-core kernels)
 MAX_GRID_YZ = 65535
+#: bf16: the tensor-core kernels load 16 bytes at a time
+ALIGN_BYTES = 16
+
+
+def route(dtype) -> str:
+    """Which kernels run inputs of `dtype`: "tensor_core" or "cuda_core"."""
+    if dtype not in ROUTES:
+        raise ValueError(f"flash attention: dtype {dtype}; want one of "
+                         f"{tuple(ROUTES)}")
+    return ROUTES[dtype]
+
+
+_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
 def build() -> ctypes.CDLL:
-    """Build (first use only) and load the forward kernel's library."""
+    """Build (first use only) and load the float32 forward's library."""
     lib = ctypes.CDLL(str(compile_library(nvcc(), NVCC_FLAGS, KERNEL_SOURCES,
                                           "flash_attention_fwd")))
-    bind(lib, "flash_attention_fwd_launch", 6,
-         [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    bind(lib, "flash_attention_fwd_launch", 6, _ARGS)
     return lib
 
 
 @functools.cache
 def build_bwd() -> ctypes.CDLL:
-    """Build (first use only) and load the backward kernels' library."""
+    """Build (first use only) and load the float32 backward's library."""
     lib = ctypes.CDLL(str(compile_library(nvcc(), NVCC_FLAGS, BWD_SOURCES,
                                           "flash_attention_bwd")))
-    bind(lib, "flash_attention_bwd_launch", 10,
-         [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    bind(lib, "flash_attention_bwd_launch", 10, _ARGS)
+    return lib
+
+
+@functools.cache
+def build_tc() -> ctypes.CDLL:
+    """Build (first use only) and load the bf16 forward's library."""
+    lib = ctypes.CDLL(str(compile_library(nvcc(), NVCC_FLAGS, TC_SOURCES,
+                                          "flash_attention_fwd_tc")))
+    bind(lib, "flash_attention_fwd_tc_launch", 6, _ARGS)
+    return lib
+
+
+@functools.cache
+def build_bwd_tc() -> ctypes.CDLL:
+    """Build (first use only) and load the bf16 backward's library."""
+    lib = ctypes.CDLL(str(compile_library(nvcc(), NVCC_FLAGS, TC_BWD_SOURCES,
+                                          "flash_attention_bwd_tc")))
+    bind(lib, "flash_attention_bwd_tc_launch", 10, _ARGS)
     return lib
 
 
@@ -68,14 +116,15 @@ def check_inputs(q, k, v, who: str = "flash_attention_fwd", **more) -> None:
     of one device and one dtype the kernel takes, with contiguous last
     dims, Hq a multiple of Hkv and a head dim it is built for.  `more`
     names further tensors of q's shape, device and dtype (the backward's
-    o and do)."""
+    o and do).  The bf16 kernels' alignment is checked with the strides
+    (`_strides`)."""
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{who}: {name} on {x.device}, want q's CUDA "
                              f"device")
-        if x.dtype != q.dtype or x.dtype not in DTYPE_CODES:
+        if x.dtype != q.dtype or x.dtype not in ROUTES:
             raise ValueError(f"{who}: {name} is {x.dtype}; want one of "
-                             f"{tuple(DTYPE_CODES)}, equal for all inputs")
+                             f"{tuple(ROUTES)}, equal for all inputs")
         if x.dim() != 4 or x.stride(-1) != 1:
             raise ValueError(f"{who}: {name} must be 4-d with a contiguous "
                              f"last dim, got shape {tuple(x.shape)} strides "
@@ -98,31 +147,84 @@ def check_inputs(q, k, v, who: str = "flash_attention_fwd", **more) -> None:
                          f"kernel's grid")
 
 
-def _strides(*xs) -> np.ndarray:
+def aligned(x) -> bool:
+    """Whether every row of `x` (its last dim contiguous) starts on an
+    ALIGN_BYTES boundary: the base and the strides of dims 0-2."""
+    return (x.data_ptr() % ALIGN_BYTES == 0
+            and all(st * x.element_size() % ALIGN_BYTES == 0
+                    for st in x.stride()[:3]))
+
+
+def _strides(who: str, path: str, *xs) -> np.ndarray:
     """Element strides of dims 0-2 of each tensor, as the kernels take
-    them (the last dim is contiguous)."""
-    return np.array([st for x in xs for st in x.stride()[:3]], np.int64)
+    them (the last dim is contiguous); for the bf16 kernels (`path`
+    "tensor_core"), raise unless every tensor is `aligned`."""
+    st = [n for x in xs for n in x.stride()[:3]]
+    if path == "tensor_core" and (
+            any(n * 2 % ALIGN_BYTES for n in st)
+            or any(x.data_ptr() % ALIGN_BYTES for x in xs)):
+        bad = next(x for x in xs if not aligned(x))
+        raise ValueError(f"{who}: a tensor at byte address "
+                         f"{bad.data_ptr()} with strides {bad.stride()}: "
+                         f"the bf16 kernels want {ALIGN_BYTES}-byte-aligned "
+                         f"bases and strides that keep them aligned")
+    return np.array(st, np.int64)
+
+
+def _on(device):
+    """The context that makes `device` current, if it is not already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+#: the forward's checked input layouts, each (shape, strides, dtype,
+#: device) of q, k and v, and the kernel strides of q, k, v and o for
+#: them: the serving path calls the forward with a few layouts over and
+#: over, and at 8 x 256 tokens the checks cost more host time than the
+#: kernel takes on the card (PERF.md)
+_FWD_LAYOUTS: dict = {}
+_MAX_LAYOUTS = 256
+
+
+def _fwd_strides(q, k, v, o, path: str) -> np.ndarray:
+    """`check_inputs` and `_strides` for the forward, once per input
+    layout; the bases' alignment (bf16) is checked on every call."""
+    key = tuple((x.shape, x.stride(), x.dtype, x.device) for x in (q, k, v))
+    strides = _FWD_LAYOUTS.get(key)
+    if strides is None:
+        check_inputs(q, k, v)
+        strides = _strides("flash_attention_fwd", path, q, k, v, o)
+        if len(_FWD_LAYOUTS) >= _MAX_LAYOUTS:
+            _FWD_LAYOUTS.clear()
+        _FWD_LAYOUTS[key] = strides
+    elif path == "tensor_core" and any(
+            x.data_ptr() % ALIGN_BYTES for x in (q, k, v)):
+        _strides("flash_attention_fwd", path, q, k, v, o)  # raises
+    return strides
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """q (B,S,Hq,hd); k/v (B,S,Hkv,hd), on the card -> (o (B,S,Hq,hd) in
     q's dtype, lse (B,Hq,S) float32), by the CUDA kernel."""
-    check_inputs(q, k, v)
+    path = route(q.dtype)
     b, s, hq, hd = q.shape
     o = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, o)
-    lib = build()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), strides.ctypes.data, b, s, hq, k.shape[2], hd,
-            DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(hd),
-            stream_ptr(q.device))
+    strides = _fwd_strides(q, k, v, o, path)
+    launch = (build_tc().flash_attention_fwd_tc_launch
+              if path == "tensor_core"
+              else build().flash_attention_fwd_launch)
+    with _on(q.device):
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), strides.ctypes.data, b, s, hq,
+                     k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
+                     stream_ptr(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_fwd ({path}) launch failed: "
+                           f"CUDA error {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.route_launches[path] += 1
     return o, lse
 
 
@@ -144,28 +246,35 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         raise ValueError(f"{who}: lse {lse.dtype}{tuple(lse.shape)} on "
                          f"{lse.device}, want contiguous float32 "
                          f"{(b, hq, s)} on {q.device}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # one float32 copy of do, multiplied by o in place (float32 math)
+    delta = do.to(torch.float32, copy=True).mul_(o).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    strides = _strides(q, k, v, do, dq, dk, dv)
-    lib = build_bwd()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), strides.ctypes.data, b, s, hq, k.shape[2], hd,
-            DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(hd),
-            stream_ptr(q.device))
+    path = route(q.dtype)
+    strides = _strides(who, path, q, k, v, do, dq, dk, dv)
+    launch = (build_bwd_tc().flash_attention_bwd_tc_launch
+              if path == "tensor_core"
+              else build_bwd().flash_attention_bwd_launch)
+    with _on(q.device):
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), strides.ctypes.data, b, s,
+                     hq, k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
+                     stream_ptr(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_bwd ({path}) launch failed: "
+                           f"CUDA error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[path] += 1
     return dq, dk, dv
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and by route
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = dict.fromkeys(ROUTES.values(), 0)
 #: backward calls (each launches the dk/dv and the dq kernel) since the
-#: count was last set to 0
+#: count was last set to 0, and by route
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES.values(), 0)

@@ -97,3 +97,90 @@ def test_kernel_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         PK.flash_attention_fwd(q, q, q)
     assert PK.flash_attention_fwd.launches == 0
+
+
+# --- the bf16 tensor-core kernel's numerics, emulated on the CPU --------
+#
+# csrc/flash_attention_fwd_tc.cu multiplies bf16 q, k and v exactly into
+# float32 sums and keeps the online softmax in float32, but rounds each
+# kv tile's unnormalised probabilities exp(s - m) to bf16 before P V.
+# `_tc_forward` repeats that, tile by tile, in float64 sums.  The card
+# holds the kernel's o to 2^-7 of max |o| and lse to 1e-4 against the
+# plain version (chip_smoke.py, attn_parity); these cases show that the
+# rounding stays inside those bounds at reduced shapes.
+
+TC_BK = 64          # kv rows per tile of the tensor-core forward
+BF16_TOL = 2 ** -7  # the card's bf16 bound, a fraction of max |o|
+
+
+def _bf16(x):
+    """float32 numpy rounded to the nearest bf16, back in float32."""
+    return torch.from_numpy(np.array(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _tc_forward(q, k, v, causal):
+    """(o, lse) as the tensor-core forward computes them: q (B,Hq,S,hd),
+    k/v (B,Hkv,S,hd), bf16-representable float32; o rounded to bf16."""
+    b, hq, s, hd = q.shape
+    g = hq // k.shape[1]
+    kk = np.repeat(k, g, axis=1).astype(np.float64)
+    vv = np.repeat(v, g, axis=1).astype(np.float64)
+    scores = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kk)
+    scores /= np.sqrt(hd)
+    if causal:
+        scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    m = np.full((b, hq, s, 1), -np.inf)
+    l = np.zeros((b, hq, s, 1))
+    acc = np.zeros((b, hq, s, hd))
+    for k0 in range(0, s, TC_BK):
+        tile = scores[..., k0:k0 + TC_BK]
+        m_new = np.maximum(m, tile.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(tile - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        acc = acc * alpha + _bf16(p) @ vv[:, :, k0:k0 + TC_BK]
+        m = m_new
+    return _bf16(acc / l), (m + np.log(l))[..., 0].astype(np.float32)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,hq,hkv", [(1, 4, 2), (64, 4, 4), (130, 8, 2),
+                                      (200, 4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_forward_rounding_within_card_tolerance(hd, s, hq, hkv, causal):
+    """The emulated tensor-core forward against the reference's plain
+    version on the same bf16 inputs: o within 2^-7 of max |o|, lse within
+    1e-4 (ragged S, GQA, every head dim the kernel is built for)."""
+    q, k, v = (_bf16(x) for x in _qkv(s + hd + hq, 2, hq, hkv, s, hd))
+    want_o, want_lse = RR.attention(*map(jnp.asarray, (q, k, v)),
+                                    causal=causal)
+    want_o = np.asarray(want_o)
+    o, lse = _tc_forward(q, k, v, causal)
+    assert np.abs(o - want_o).max() <= BF16_TOL * np.abs(want_o).max()
+    np.testing.assert_allclose(lse, np.asarray(want_lse), rtol=0, atol=1e-4)
+
+
+def test_route_is_by_dtype():
+    """bf16 runs on the tensor-core kernels, float32 on the CUDA-core
+    ones; any other dtype is refused, not sent to either."""
+    assert PK.route(torch.bfloat16) == "tensor_core"
+    assert PK.route(torch.float32) == "cuda_core"
+    with pytest.raises(ValueError, match="dtype"):
+        PK.route(torch.float16)
+    assert set(PK.flash_attention_fwd.route_launches) == {"tensor_core",
+                                                          "cuda_core"}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_fused_projection_views_are_aligned(hd):
+    """The model's q/k/v views of one fused projection meet the bf16
+    kernels' 16-byte alignment; a view one element off does not."""
+    b, s, hq, hkv = 2, 24, 8, 2
+    x = torch.zeros((b, s, (hq + 2 * hkv) * hd + 8), dtype=torch.bfloat16)
+    fused = x[..., 8:]
+    q, k, v = torch.split(fused, [hq * hd, hkv * hd, hkv * hd], -1)
+    for t in (q, k, v):
+        assert PK.aligned(t.view(b, s, -1, hd))
+    off = x[..., 1:1 + hq * hd].view(b, s, hq, hd)
+    assert not PK.aligned(off)

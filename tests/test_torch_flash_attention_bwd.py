@@ -146,3 +146,71 @@ def test_bwd_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         PK.flash_attention_bwd(q, q, q, q, lse, q)
     assert PK.flash_attention_bwd.launches == 0
+
+
+# --- the bf16 tensor-core backward's numerics, emulated on the CPU ------
+#
+# csrc/flash_attention_bwd_tc.cu computes s, dp, p = exp(s - lse) and
+# ds = p (dp - delta) / sqrt(hd) in float32 from bf16 q, k, v, do, and
+# rounds p and ds to bf16 before the products dv = p^T do, dk = ds^T q
+# and dq = ds k, which sum in float32.  `_tc_backward` repeats that.  The
+# card holds each gradient to 2^-7 of its max |g| against the plain
+# version (chip_smoke.py, attn_bwd_parity); these cases show that the
+# rounding stays inside that bound at reduced shapes.
+
+def _bf16(x):
+    """float32 numpy rounded to the nearest bf16, back in float32."""
+    return torch.from_numpy(np.array(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _tc_backward(q, k, v, o, lse, do, causal):
+    """(dq, dk, dv) as the tensor-core backward computes them, each
+    rounded to bf16: q, o, do (B,Hq,S,hd), k/v (B,Hkv,S,hd) and lse
+    (B,Hq,S), float32 numpy; dk and dv summed over each group."""
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    kk, vv = np.repeat(k, g, axis=1), np.repeat(v, g, axis=1)
+    scale = 1.0 / np.sqrt(hd)
+    sc = np.einsum("bhqd,bhkd->bhqk", q, kk) * scale
+    p = np.exp(sc - lse[..., None])
+    if causal:
+        p = np.where(np.tril(np.ones((s, s), bool)), p, 0.0)
+    dp = np.einsum("bhqd,bhkd->bhqk", do, vv)
+    delta = (do * o).sum(-1, keepdims=True)
+    ds = p * (dp - delta) * scale
+    p16, ds16 = _bf16(p), _bf16(ds)
+    dv = np.einsum("bhqk,bhqd->bhkd", p16, do)
+    dk = np.einsum("bhqk,bhqd->bhkd", ds16, q)
+    dq = np.einsum("bhqk,bhkd->bhqd", ds16, kk)
+    dk = dk.reshape(b, hkv, g, s, hd).sum(2)
+    dv = dv.reshape(b, hkv, g, s, hd).sum(2)
+    return tuple(_bf16(x) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,hq,hkv", [(1, 4, 2), (64, 4, 4), (130, 8, 2),
+                                      (200, 4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_backward_rounding_within_card_tolerance(hd, s, hq, hkv, causal):
+    """The emulated tensor-core backward against the vjp of the
+    reference's ``ref.attention`` on the same bf16 q, k, v, do (o and lse
+    the reference's, rounded as the kernel's forward hands them over):
+    every gradient within 2^-7 of its max |g| (ragged S, GQA, every head
+    dim the kernel is built for).  At S = 1, dq and dk are zero in exact
+    arithmetic and both sides hold only rounding noise: there they are
+    held to 2^-7 of max |dv| instead."""
+    q, k, v, do = (_bf16(x) for x in _inputs(s + hd + hq, 2, s, hq, hkv,
+                                            hd))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    (o, lse), vjp = jax.vjp(lambda a, b_, c: RR.attention(a, b_, c,
+                                                          causal=causal),
+                            jq, jk, jv)
+    want = vjp((jnp.asarray(do), jnp.zeros_like(lse)))
+    got = _tc_backward(q, k, v, _bf16(o), np.asarray(lse), do, causal)
+    tol = DTYPES["bfloat16"][3]
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        scale = np.abs(want[2] if s == 1 else w).max()
+        assert np.abs(g - w).max() <= tol * scale
