@@ -93,14 +93,18 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-11. pipe_parity  the SMLA cascaded-pipeline matmul kernel (Cascaded-IO,
-             and Dedicated-IO as L launches + a sum) against its plain
-             versions and `matmul_striped`: the reference test's grid in
-             float32 and bf16, ragged M, N and stripes, the striping order;
-             then the main path, `benchmarks/smla_pipe_bench.run` at its two
-             shapes (launch counters reset just before and read just after),
-             and the plain versions timed at the realistic shape, x (8192,
-             2048) @ w (4, 512, 5632).
+11. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+             a staging kernel, the product kernel, and for Dedicated-IO L
+             product launches + a sum kernel) against its plain versions
+             and `matmul_striped`: the reference test's grid in float32
+             and bf16, ragged M, N and stripes, the striping order; the
+             staging kernel bit for bit against `ref.stage_tf32` at each
+             of those shapes; then the main path,
+             `benchmarks/smla_pipe_bench.run` at its two shapes (launch
+             counters reset just before and read just after); at the
+             realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
+             staging and the sum bit for bit against their plain versions,
+             and every kernel's plain version timed.
 12. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
@@ -212,14 +216,17 @@ TRAIN_GRAD_TOL_F32 = 1e-5
 #: alone exceeds it (H100: gap 3.0e-5, chunked vs naive 2.1e-4)
 TRAIN_LOSS_TOL_BF16 = 1e-3
 
-#: the float32 rates of the tensor cores (TF32) of one H100 SXM (NVIDIA
-#: data sheet, dense), written beside the matmul's bound for a later
-#: perf_opt; the kernel itself promises float32 products
+#: the float32 rate of the tensor cores (TF32) of one H100 SXM (NVIDIA
+#: data sheet, dense): the matmul kernel's bound, three TF32 products
+#: (3xTF32, float32-accurate) per float32 product
 PEAK_TF32_FLOPS = 495e12
 #: phase `pipe_parity`: (M, K, N, L) of the reference test's grid
-#: (tests/test_kernels.py:149-150) and ragged M, N and stripes
+#: (tests/test_kernels.py:149-150) and ragged M, N and stripes: the CPU
+#: test's (70, 800, 33, 4) and one whose K/L (37) and N are both odd, rows
+#: no TMA tensor map could describe unpadded
 PIPE_GRID = ((128, 256, 128, 2), (256, 512, 128, 4), (128, 512, 256, 8))
-PIPE_RAGGED = ((192, 512, 128, 4), (128, 384, 192, 4))
+PIPE_RAGGED = ((192, 512, 128, 4), (128, 384, 192, 4), (70, 800, 33, 4),
+               (65, 148, 33, 4))
 #: the kernel against its plain versions and `matmul_striped`: this
 #: fraction of max |ref| for both dtypes (bf16 inputs are upcast exactly;
 #: only the order of the float32 sums differs)
@@ -1423,10 +1430,21 @@ def main() -> int:
                                f"abs error {err} > {tol}")
         pipe_err[kind] = max(pipe_err[kind], err)
 
+    def pipe_bits(got, want, what):
+        """float32 tensors equal bit for bit."""
+        if got.shape != want.shape or not torch.equal(
+                got.view(torch.int32), want.view(torch.int32)):
+            raise RuntimeError(f"{what}: not bit-identical to its plain "
+                               f"version")
+
     def pipe_work(m, k, n):
         """(bytes, FLOPs) x (M, K) @ w (K, N) must move and do in float32:
         x and w read once, the output written once; 2 M K N."""
         return 4 * (m * k + k * n + m * n), 2.0 * m * k * n
+
+    def bytes_bound(n_bytes):
+        return {"bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                "bytes": n_bytes}
 
     @phase("pipe_parity")
     def pipe_parity():
@@ -1438,6 +1456,8 @@ def main() -> int:
                 w = randn(gen, (l, k // l, nn), dt)
                 want = pipe_ref.matmul_striped(x, w)
                 what = f"smla_pipe ({m},{k},{nn},{l}) {dt}"
+                pipe_bits(pipe_kernel.stage_tf32(x, w),
+                          pipe_ref.stage_tf32(x, w), what + " staging")
                 cas = pipe_kernel.matmul_cascaded(x, w)
                 ded = pipe_kernel.matmul_dedicated(x, w)
                 pipe_check(cas, pipe_ref.cascaded(x, w),
@@ -1462,20 +1482,26 @@ def main() -> int:
 
         # the main path: the benchmark at its two shapes, launch counters
         # reset just before and read just after
+        counted = {"cascaded": pipe_kernel.matmul_cascaded,
+                   "dedicated": pipe_kernel.matmul_dedicated,
+                   "stage": pipe_kernel.stage_tf32,
+                   "sum": pipe_kernel.sum_partials}
         torch.cuda.synchronize()
-        pipe_kernel.matmul_cascaded.launches = 0
-        pipe_kernel.matmul_dedicated.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         rows = {name: {r["impl"]: r for r in smla_pipe_bench.run(
                     *shape, device=dev)}
                 for name, shape in smla_pipe_bench.SHAPES.items()}
         torch.cuda.synchronize()
-        launches = {"cascaded": pipe_kernel.matmul_cascaded.launches,
-                    "dedicated": pipe_kernel.matmul_dedicated.launches}
-        want_l = {"cascaded": sum(r["cascaded"]["calls"]
-                                  for r in rows.values()),
+        launches = {k: fn.launches for k, fn in counted.items()}
+        calls = {impl: sum(r[impl]["calls"] for r in rows.values())
+                 for impl in ("cascaded", "dedicated")}
+        want_l = {"cascaded": calls["cascaded"],
                   "dedicated": sum(smla_pipe_bench.SHAPES[name][3]
                                    * r["dedicated"]["calls"]
-                                   for name, r in rows.items())}
+                                   for name, r in rows.items()),
+                  "stage": calls["cascaded"] + calls["dedicated"],
+                  "sum": calls["dedicated"]}
         if launches != want_l:
             raise RuntimeError(f"smla_pipe bench: launches {launches}, want "
                                f"{want_l}")
@@ -1488,8 +1514,8 @@ def main() -> int:
                                        f"{tol}")
 
         # the realistic shape: kernels against their plain versions, and
-        # the plain versions' times (the kernels' and the matmul's are the
-        # bench's)
+        # the plain versions' times (the matmuls' and torch.matmul's are
+        # the bench's)
         m, k, nn, l = smla_pipe_bench.SHAPES["realistic"]
         x = randn(gen, (m, k), f32)
         w = randn(gen, (l, k // l, nn), f32)
@@ -1498,9 +1524,15 @@ def main() -> int:
                    what + " cascaded", "cascaded")
         pipe_check(pipe_kernel.matmul_dedicated(x, w),
                    pipe_ref.dedicated(x, w), what + " dedicated", "dedicated")
+        planes = pipe_kernel.stage_tf32(x, w)
+        pipe_bits(planes, pipe_ref.stage_tf32(x, w), what + " staging")
+        parts = randn(gen, (l, m, nn), f32)
+        pipe_bits(pipe_kernel.sum_partials(parts),
+                  pipe_ref.sum_partials(parts), what + " sum")
+        n += 3
         n_bytes, flops = pipe_work(m, k, nn)
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_OPS_S * 1e3
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
         real = rows["realistic"]
         out = {}
         for impl, plain in (("cascaded", pipe_ref.cascaded),
@@ -1511,21 +1543,43 @@ def main() -> int:
                                     calls=2)[0],
                 "library_ms": real["torch_matmul"]["ms"],
                 "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_by": ("bytes" if t_bytes >= t_ops
+                             else "operations (3xTF32)"),
+                "fp32_fma_bound_ms": flops / PEAK_OPS_S * 1e3,
                 "tf32_bound_ms": flops / PEAK_TF32_FLOPS * 1e3,
                 "bf16_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
                 "launches": launches[impl], "flop": flops,
                 "bytes": n_bytes}
+        # the staging reads x and w and writes the planes; the sum reads L
+        # partials and writes one
+        out["stage"] = {
+            "ms": cuda_ms(lambda: pipe_kernel.stage_tf32(x, w), reps=5,
+                          calls=10)[0],
+            "plain_ms": cuda_ms(lambda: pipe_ref.stage_tf32(x, w), reps=3,
+                                calls=2)[0],
+            "library_ms": None, "launches": launches["stage"],
+            **bytes_bound(4 * (m * k + k * nn) + 4 * planes.numel())}
+        out["sum"] = {
+            "ms": cuda_ms(lambda: pipe_kernel.sum_partials(parts), reps=5,
+                          calls=10)[0],
+            "plain_ms": cuda_ms(lambda: pipe_ref.sum_partials(parts),
+                                reps=3, calls=2)[0],
+            "library_ms": cuda_ms(lambda: parts.sum(0), reps=5,
+                                  calls=10)[0],
+            "launches": launches["sum"],
+            **bytes_bound(4 * (l + 1) * m * nn)}
         st = {"kernels": out, "bench": rows, "card": smi}
         print(json.dumps({"pipe_parity": st}), flush=True)
         return out, (f"{n} kernel checks passed (max abs err cascaded "
                      f"{pipe_err['cascaded']}, dedicated "
-                     f"{pipe_err['dedicated']}); at ({m},{k},{nn},{l}) "
+                     f"{pipe_err['dedicated']}; staging and sum "
+                     f"bit-identical); at ({m},{k},{nn},{l}) "
                      f"cascaded {out['cascaded']['ms']:.3f} ms, dedicated "
                      f"{out['dedicated']['ms']:.3f} ms, torch.matmul "
                      f"{out['cascaded']['library_ms']:.3f} ms, bound "
-                     f"{out['cascaded']['bound_ms']:.3f} ms; launches "
-                     f"{launches}")
+                     f"{out['cascaded']['bound_ms']:.3f} ms (3xTF32); "
+                     f"staging {out['stage']['ms']:.3f} ms, sum "
+                     f"{out['sum']['ms']:.3f} ms; launches {launches}")
 
     wkv_err = {"max_abs": 0.0, "max_rel": 0.0}
 
@@ -1905,6 +1959,20 @@ def main() -> int:
             "shape": "x (8192,2048) @ w (4,512,5632) float32: 4 launches + "
                      "a sum",
             "check": "ok"}, {
+            "name": "smla_pipe_stage_tf32", "route": "cuda",
+            "source": "src/repro_torch/csrc/smla_pipe.cu",
+            "replaces": "src/repro/kernels/smla_pipe/kernel.py:71",
+            "max_abs_err": 0.0, **pipe["stage"],
+            "shape": "x (8192,2048), w (4,512,5632) float32 -> TF32 hi/lo "
+                     "planes (one per matmul call)",
+            "check": "bit-identical"}, {
+            "name": "smla_pipe_sum_partials", "route": "cuda",
+            "source": "src/repro_torch/csrc/smla_pipe.cu",
+            "replaces": "src/repro/kernels/smla_pipe/kernel.py:97",
+            "max_abs_err": 0.0, **pipe["sum"],
+            "shape": "parts (4,8192,5632) float32 (one per matmul_dedicated "
+                     "call)",
+            "check": "bit-identical"}, {
             "name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6/kernel.py:74",

@@ -7,6 +7,7 @@ The libraries are loaded with ``ctypes``; every pointer and the stream
 travel as ``ctypes.c_void_p``."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -86,3 +87,13 @@ def stream_ptr(device) -> int:
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device):
+    """The context that makes `device` current, if it is not already (a
+    launcher's host cost: entering ``torch.cuda.device`` on every call
+    shows at short kernels)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

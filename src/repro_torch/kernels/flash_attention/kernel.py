@@ -35,7 +35,6 @@ same calls by route.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -44,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch._build import (NVCC_FLAGS, bind, compile_library, nvcc,
-                                stream_ptr)
+                                on_device, stream_ptr)
 
 KERNEL_SOURCES = ("attention_common.cuh", "flash_attention_fwd.cu")
 BWD_SOURCES = ("attention_common.cuh", "flash_attention_bwd.cu")
@@ -171,13 +170,6 @@ def _strides(who: str, path: str, *xs) -> np.ndarray:
     return np.array(st, np.int64)
 
 
-def _on(device):
-    """The context that makes `device` current, if it is not already."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 #: the forward's checked input layouts, each (shape, strides, dtype,
 #: device) of q, k and v, and the kernel strides of q, k, v and o for
 #: them: the serving path calls the forward with a few layouts over and
@@ -215,7 +207,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     launch = (build_tc().flash_attention_fwd_tc_launch
               if path == "tensor_core"
               else build().flash_attention_fwd_launch)
-    with _on(q.device):
+    with on_device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), strides.ctypes.data, b, s, hq,
                      k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
@@ -257,7 +249,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     launch = (build_bwd_tc().flash_attention_bwd_tc_launch
               if path == "tensor_core"
               else build_bwd().flash_attention_bwd_launch)
-    with _on(q.device):
+    with on_device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                      dk.data_ptr(), dv.data_ptr(), strides.ctypes.data, b, s,

@@ -4,7 +4,9 @@ the reference, same numpy inputs: `ops.matmul_cascaded` and
 reference's Pallas kernels in interpret mode at the reference test's grid
 (divisible shapes: the reference drops ragged tiles and stripe tails,
 ROADMAP queue 3), and against `matmul_striped` everywhere, ragged shapes
-included; the striping order; the wrappers' dispatch; the benchmark.
+included; the striping order; the staging kernel's plain version (TF32
+planes and their layout) and the 3xTF32 products' accuracy, the card
+kernel's premise; the wrappers' dispatch; the benchmark.
 
 Tolerance: 1e-5 x max |ref| for both dtypes — bf16 inputs are upcast to
 float32 exactly, so only the order of the float32 sums differs; the
@@ -98,22 +100,106 @@ def test_layer_striping_order():
         np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-6)
 
 
+def _counts():
+    return (K.matmul_cascaded.launches, K.matmul_dedicated.launches,
+            K.stage_tf32.launches, K.sum_partials.launches)
+
+
 def test_dispatch_and_wrapper_checks():
     (_, _), (x, w) = _inputs(64, 128, 32, 2, "float32")
-    before = (K.matmul_cascaded.launches, K.matmul_dedicated.launches)
+    before = _counts()
     ops.matmul_cascaded(x, w)
     ops.matmul_dedicated(x, w)
     # CPU tensors run the plain versions: no kernel launch is counted
-    assert (K.matmul_cascaded.launches, K.matmul_dedicated.launches) == before
+    assert _counts() == before
     # the kernel wrappers take CUDA tensors only, and raise on anything else
+    for fn in (K.matmul_cascaded, K.matmul_dedicated, K.stage_tf32):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(x, w)
     with pytest.raises(ValueError, match="CUDA device"):
-        K.matmul_cascaded(x, w)
-    with pytest.raises(ValueError, match="CUDA device"):
-        K.matmul_dedicated(x, w)
+        K.sum_partials(torch.zeros((2, 4, 4)))
+    assert _counts() == before
     with pytest.raises(ValueError, match="unsupported device"):
         ops.matmul_cascaded(x.to("meta"), w.to("meta"))
     with pytest.raises(ValueError, match="K != L"):
         ref.cascaded(x, w[:, :10])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m,k,n,l", [(70, 800, 33, 4), (65, 148, 33, 4),
+                                     (128, 256, 128, 2)])
+def test_split_tf32_planes(dtype, m, k, n, l):
+    """The staging kernel's plain version: hi has 13 zero low bits, hi +
+    lo is within 2^-22 of |a|, bf16 values give lo = 0, and every element
+    lands where the product kernel reads it (tile, row, swizzled piece),
+    with zeros in the padding."""
+    (_, _), (x, w) = _inputs(m, k, n, l, dtype, seed=3)
+    a = x.float()
+    hi, lo = ref.split_tf32(a)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert bool(((hi + lo - a).abs() <= 2.0 ** -22 * a.abs()).all())
+    if dtype == "bfloat16":
+        assert torch.equal(hi, a) and not lo.any()
+
+    planes = ref.stage_tf32(x, w)
+    assert planes.dtype == torch.float32
+    assert planes.numel() == ref.planes_numel(x, w)
+    kpl = k // l
+    n_k = -(-kpl // ref.CHUNK)
+    n_t, mt = l * n_k, -(-m // ref.TILE_ROWS)
+    nt = -(-n // ref.TILE_ROWS)
+    tile = ref.TILE_ROWS * ref.CHUNK
+    side = (mt + nt) * n_t * tile
+
+    def where(row, layer, kk, row_block0):
+        """Flat index of stripe element kk of `layer` in staged row `row`."""
+        t = layer * n_k + kk // ref.CHUNK
+        r, c = row % ref.TILE_ROWS, (kk % ref.CHUNK) // 4
+        return (((row_block0 + row // ref.TILE_ROWS) * n_t + t) * tile
+                + r * ref.CHUNK + 4 * (c ^ (r % 8)) + kk % 4)
+
+    rows, layers, kks = np.meshgrid(np.arange(m), np.arange(l),
+                                    np.arange(kpl), indexing="ij")
+    ix = torch.from_numpy(where(rows, layers, kks, 0).reshape(-1))
+    cols, layers, kks = np.meshgrid(np.arange(n), np.arange(l),
+                                    np.arange(kpl), indexing="ij")
+    iw = torch.from_numpy(where(cols, layers, kks, mt).reshape(-1))
+    w_rows = w.float().permute(2, 0, 1)            # (N, L, K/L)
+    planes_of = [(0, hi, ref.split_tf32(w_rows)[0])]
+    if dtype == "float32":
+        planes_of.append((side, lo, ref.split_tf32(w_rows)[1]))
+    else:
+        assert planes.numel() == side
+    filled = torch.zeros(planes.numel(), dtype=torch.bool)
+    for base, xp, wp in planes_of:
+        assert torch.equal(planes[base + ix], xp.reshape(-1))
+        assert torch.equal(planes[base + iw], wp.reshape(-1))
+        filled[base + ix] = filled[base + iw] = True
+    assert not planes[~filled].any()                 # the padding is zero
+
+
+#: the 3xTF32 check's shapes: the grid, the ragged ones and the realistic
+#: shape's depth (K 2048 over 4 layers) at a CPU-sized M and N
+TF32_SHAPES = GRID + RAGGED + [(256, 2048, 256, 4)]
+
+
+@pytest.mark.parametrize("m,k,n,l", TF32_SHAPES)
+def test_three_tf32_products_meet_pipe_tol(m, k, n, l):
+    """The product kernel's premise: x_hi w_hi + x_hi w_lo + x_lo w_hi of
+    the staging's TF32 planes (products exact, summed here in float64)
+    meets the kernel's tolerance against the reference's float32
+    `matmul_striped`; one TF32 product, at the realistic depth, does
+    not."""
+    (jx, jw), (tx, tw) = _inputs(m, k, n, l, "float32", seed=4)
+    want = SR.matmul_striped(jx, jw)
+    xh, xl = (p.double() for p in ref.split_tf32(tx))
+    wh, wl = (p.double() for p in ref.split_tf32(tw.reshape(k, n)))
+    _close((xh @ wh + xh @ wl + xl @ wh).float(), want, "3xTF32")
+    if k == 2048:
+        one = (xh @ wh).float().numpy()
+        err = float(np.abs(one - np.asarray(want)).max())
+        assert err > 1e-5 * float(np.abs(np.asarray(want)).max())
 
 
 def test_bench_runs_on_cpu(capsys):
