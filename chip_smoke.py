@@ -25,12 +25,15 @@ and the script exits non-zero):
              layers (2, 4, 8), n_req 600, horizon from
              ``analytic.default_horizon`` (465 cells) — through
              ``run_sweep`` on the kernel, launch counter reset just before
-             and read just after; every cell must complete its fixed work;
+             and read just after: one launch per shape group, whatever its
+             makespan buckets; every cell must complete its fixed work;
              one workload's 5 IO-model cells at full n_req are held
              against the plain version, and the kernel, the plain version
-             and the whole grid's launches are timed with CUDA events;
-             the grid is also timed as one launch, whose metrics must
-             equal the main path's.
+             and the main path's launches are timed with CUDA events
+             (with us per simulated cycle of the slowest cell); the
+             bucketed plan (one launch per bucket) is timed once more for
+             the record, its chunks and metrics equal to the main path's,
+             and so is the grid as one launch at one chunk width.
 6. attn_parity  the flash-attention and flash-decode kernels against
              their plain versions on the card: flash at (B 8, Hq 32,
              Hkv 4, hd 64) and (B 2, Hq 16, Hkv 8, hd 128), S in {256,
@@ -41,15 +44,22 @@ and the script exits non-zero):
              with the route counts read, so float32 shows it still runs
              the CUDA-core kernel (held at 1e-5); decode at Smax in
              {512, 300} with mixed lengths, bf16, and finite garbage
-             past the lengths must change nothing.  Each kernel is timed
-             beside its plain version and one PyTorch call as a
-             yardstick (SDPA; the port never calls it).
+             past the lengths must change nothing; decode in bf16 (2^-7
+             of max |o|) and float32 (1e-5), a lane of length 0 gives
+             zeros, and the split-KV combine is bit-identical to
+             ``ref.combine_splits`` on the split kernel's own partials.
+             Each kernel is timed beside its plain version and one
+             PyTorch call as a yardstick (SDPA; the port never calls it);
+             decode also on the device (``benchmarks/decode_bench.py``: a
+             replayed CUDA graph, and the profiler's device events), with
+             its split count, and the combine kernel alone.
 7. serve     the serving path at full width: tinyllama-1.1b (22 layers,
              d 2048, 32/4 heads, bf16), random weights from a seeded
              generator, `Engine` with attn_impl "pallas", 8 requests of
              256 prompt tokens, 64 new tokens, greedy, through
              `bridge.capture_generate`; launch counters reset just before
-             and read just after (flash 22, decode 22 x 63); then the
+             and read just after (flash 22, decode 22 x 63 and its
+             combine 22 x 63); then the
              same tokens teacher-forced through the plain path
              (attn_impl "naive").  bf16: every step's logits within
              max(5e-2, 1.5 x the gap between the reference's own two
@@ -62,9 +72,11 @@ and the script exits non-zero):
              `StreamProfile.from_capture`, `mix_trace` for the three
              traffic classes of ``benchmarks/paper_fig_serve.py`` x
              cascaded MLR/SLR x POLICY_PRESETS (66 cells, n_req 600)
-             through `run_sweep` on the kernel (launches counted, every
-             cell must complete), and one class x both organisations at
-             n_req 120 held against the plain engine on the card.
+             through `run_sweep` on the kernel (one launch per shape
+             group, counted; every cell must complete; timed, and the
+             bucketed plan timed and held equal for the record), and one
+             class x both organisations at n_req 120 held against the
+             plain engine on the card.
 9. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
@@ -478,7 +490,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.benchmarks import smla_pipe_bench
+    from repro_torch.benchmarks import decode_bench, smla_pipe_bench
     from repro_torch.kernels.smla_pipe import kernel as pipe_kernel
     from repro_torch.kernels.smla_pipe import ref as pipe_ref
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
@@ -578,6 +590,65 @@ def main() -> int:
         return cuda_ms(lambda: kern(p_b, t_b, horizon=horizon, core=core,
                                     banks=bkt.banks, chunk=bkt.chunk))
 
+    def shape_groups(spec):
+        return len({id(b.group)
+                    for b in sweep._plan(spec, sweep._sweep_cells(spec))})
+
+    def timed_groups(spec):
+        """The main path's dispatch — one launch per shape group, each
+        cell with its bucket's chunk width — each launch timed alone (CUDA
+        events): (ms per launch, the result as `run_sweep` assembles
+        it)."""
+        cells = sweep._sweep_cells(spec)
+        plan = sweep._plan(spec, cells)
+        times = []
+
+        def launch(*a, **kw):
+            ms, out = cuda_ms(lambda: kern(*a, **kw))
+            times.append(ms)
+            return out
+        return times, sweep._assemble(spec, cells, plan,
+                                      sweep._run_groups(spec, plan, launch))
+
+    def timed_buckets(spec):
+        """The bucketed plan — one launch per makespan bucket, as before
+        the one launch per shape group — each launch timed alone: (ms per
+        launch, the result as `run_sweep` assembles it)."""
+        cells = sweep._sweep_cells(spec)
+        plan = sweep._plan(spec, cells)
+        runs = [launch_bucket(bkt, spec.options.horizon, spec.core)
+                for bkt in plan]
+        outs = [{k: v.cpu().numpy() for k, v in out.items()}
+                for _, out in runs]
+        return [ms for ms, _ in runs], sweep._assemble(spec, cells, plan,
+                                                       outs)
+
+    def same_sweep(got, want, what):
+        """Two sweep results agree: names, chunk widths, the buckets'
+        cells, widths, rows and chunks_run, and every metric of every
+        cell (ints exact, floats to RTOL)."""
+        keys = ("cells", "chunk", "n_rows", "chunks_run")
+        if (got.names != want.names or got.chunks != want.chunks
+                or [[b[k] for k in keys] for b in got.buckets]
+                != [[b[k] for k in keys] for b in want.buckets]):
+            raise RuntimeError(f"{what}: plans or chunks differ")
+        for name in want.names:
+            compare({k: torch.from_numpy(np.asarray(v))
+                     for k, v in got[name].items()},
+                    {k: torch.from_numpy(np.asarray(v))
+                     for k, v in want[name].items()}, f"{what}: {name}")
+
+    def cycle_times(res, cells, kernel_ms):
+        """us per simulated cycle of the slowest cell: the kernel's ms over
+        its makespan, and over the cycles its chunks ran."""
+        unit = {c.name: c.stack.unit_ns for c in cells}
+        span = max(float(res[n]["makespan_ns"]) / unit[n] for n in res.names)
+        ran = max(int(res[n]["chunks_run"]) * ch
+                  for n, ch in zip(res.names, res.chunks))
+        return {"slowest_makespan_cycles": span, "slowest_cycles_run": ran,
+                "us_per_cycle": kernel_ms * 1e3 / span,
+                "us_per_cycle_run": kernel_ms * 1e3 / ran}
+
     @phase("parity")
     def parity():
         cells = sweep.policy_cells(io_cells(mix, 60),
@@ -619,6 +690,7 @@ def main() -> int:
         horizon = default_horizon(cells)
         spec = sweep.SweepSpec(tuple(cells),
                                engine.SimOptions(horizon=horizon))
+        groups = shape_groups(spec)
         torch.cuda.synchronize()
         kern.launches = 0
         t0 = time.perf_counter()
@@ -626,9 +698,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kern.launches
-        if launches < 1 or launches != len(res.buckets):
+        if launches < 1 or launches != groups:
             raise RuntimeError(f"main path launched the kernel {launches} "
-                               f"times for {len(res.buckets)} buckets")
+                               f"times for {groups} shape groups "
+                               f"({len(res.buckets)} buckets)")
         sc = res.scalars(("chunks_run", "bandwidth_gbps", "makespan_ns"))
         for name in res.names:
             m = res[name]
@@ -660,16 +733,21 @@ def main() -> int:
                      for k, v in res[c.name].items()}, c.name)
         b_ms, b_by, ops = bound_ms(params, traces, got, 2)
 
-        # the whole grid's kernel time: each bucket's launch, timed alone
-        def launch(bkt):
-            return launch_bucket(bkt, horizon, core)
-        bucket_ms = [launch(bkt)[0] for bkt in sweep._plan(spec, cells)]
-        grid_ms = sum(bucket_ms)
-        # the same grid as one launch (one bucket, no makespan batching);
-        # its metrics must equal the main path's
+        # the whole grid's kernel time: the main path's launch per shape
+        # group, timed alone; its result must be the main path's
+        group_ms, again = timed_groups(spec)
+        same_sweep(again, res, "grid timed")
+        grid_ms = sum(group_ms)
+        # the bucketed plan once more, for the record (one launch per
+        # makespan bucket, each timed alone): its chunks and every metric
+        # must equal the main path's
+        bucket_ms, bucketed = timed_buckets(spec)
+        same_sweep(bucketed, res, "grid bucketed vs one launch per group")
+        # the same grid as one launch at one chunk width (one bucket, no
+        # makespan batching); its metrics must equal the main path's
         (one,) = sweep._plan(dataclasses.replace(
             spec, makespan_batching=False), cells)
-        one_ms, one_out = launch(one)
+        one_ms, one_out = launch_bucket(one, horizon, core)
         compare({k: v.cpu() for k, v in one_out.items()},
                 {k: torch.from_numpy(np.stack([res[one.group[j].name][k]
                                                for j in one.positions]))
@@ -678,8 +756,11 @@ def main() -> int:
         stats = {
             "cells": len(res.names), "horizon": horizon, "wall_s": wall,
             "cells_per_s": len(res.names) / wall, "launches": launches,
-            "grid_kernel_ms": grid_ms, "grid_one_launch_ms": one_ms,
-            "one_launch_chunk": one.chunk,
+            "shape_groups": groups, "buckets": len(res.buckets),
+            "grid_kernel_ms": grid_ms, "group_ms": group_ms,
+            "grid_bucketed_ms": sum(bucket_ms),
+            "grid_one_launch_ms": one_ms, "one_launch_chunk": one.chunk,
+            **cycle_times(res, cells, grid_ms),
             "chunks_run_sum": int(sc["chunks_run"].sum()),
             "bucket_ms": bucket_ms,
             "bucket_max_chunks": [b["chunks_run"] for b in res.buckets],
@@ -691,9 +772,13 @@ def main() -> int:
         print(json.dumps({"grid": stats}), flush=True)
         return stats, (f"{len(res.names)} cells in {wall:.3f} s "
                        f"({len(res.names) / wall:.1f} cells/s), kernel "
-                       f"{grid_ms:.3f} ms over {launches} launches "
-                       f"({one_ms:.3f} ms as one launch), chunks_run "
-                       f"sum {stats['chunks_run_sum']}")
+                       f"{grid_ms:.3f} ms over {launches} launch(es), one "
+                       f"per shape group ({stats['grid_bucketed_ms']:.3f} "
+                       f"ms over {len(bucket_ms)} bucket launches, "
+                       f"{one_ms:.3f} ms as one launch at one width), "
+                       f"{stats['us_per_cycle']:.4f} us per cycle of the "
+                       f"slowest cell, chunks_run sum "
+                       f"{stats['chunks_run_sum']}")
 
     bf16, f32 = torch.bfloat16, torch.float32
     attn_err = {"flash": 0.0, "decode": 0.0}
@@ -780,26 +865,51 @@ def main() -> int:
                   f"flash route {path}", "flash")
             n += 1
         b, hq, hkv, hd = 8, 32, 4, 64
-        for smax in (512, 300):
-            q = randn(gen, (b, 1, hq, hd), bf16)
-            kc = randn(gen, (b, smax, hkv, hd), bf16)
-            vc = randn(gen, (b, smax, hkv, hd), bf16)
-            # 63: one below a chunk boundary; 1; full; odd lengths
-            lens = torch.tensor([smax, 1, 63, 64, 65, 200, smax - 1, 129],
-                                dtype=torch.int32, device=dev)
-            o = dec_kernel.decode_attention(q, kc, vc, lens)
-            want = decode_plain(q, kc, vc, lens)
-            check(max_abs(o, want), 2 ** -7 * float(want.float().abs().max()),
-                  f"decode Smax {smax}", "decode")
-            kg, vg = kc.clone(), vc.clone()
-            for i, n_len in enumerate(lens.tolist()):
-                kg[i, n_len:] = 1e4
-                vg[i, n_len:] = -1e4
-            if not torch.equal(dec_kernel.decode_attention(q, kg, vg, lens),
-                               o):
-                raise RuntimeError(f"decode Smax {smax}: values past the "
-                                   f"lengths changed the output")
-            n += 1
+        dec_splits = {}
+        for dt in (bf16, f32):
+            for smax in (512, 300):
+                q = randn(gen, (b, 1, hq, hd), dt)
+                kc = randn(gen, (b, smax, hkv, hd), dt)
+                vc = randn(gen, (b, smax, hkv, hd), dt)
+                # 63: one below a chunk boundary; 1; full; odd lengths
+                lens = torch.tensor([smax, 1, 63, 64, 65, 200, smax - 1,
+                                     129], dtype=torch.int32, device=dev)
+                what = f"decode Smax {smax} {dt}"
+                o = dec_kernel.decode_attention(q, kc, vc, lens)
+                want = decode_plain(q, kc, vc, lens)
+                # bf16: one bf16 ulp at max|o|; float32: 1e-5 (the float32
+                # sums run in another order)
+                check(max_abs(o, want), 1e-5 if dt == f32 else
+                      2 ** -7 * float(want.float().abs().max()), what,
+                      "decode")
+                # the combine, bit for bit: its plain version and the
+                # combine kernel alone, on the split kernel's own partials
+                o2, (m, l, acc) = dec_kernel.decode_attention_partials(
+                    q, kc, vc, lens)
+                if not (torch.equal(o2, o) and torch.equal(
+                        dec_ref.combine_splits(m, l, acc, dt).reshape(
+                            o.shape), o)
+                        and torch.equal(dec_kernel.combine(m, l, acc, dt),
+                                        o)):
+                    raise RuntimeError(f"{what}: the combine differs from "
+                                       f"ref.combine_splits")
+                dec_splits[smax] = m.shape[2]
+                # a lane of length 0 gives zeros; the others do not move
+                lens0 = lens.clone()
+                lens0[1] = 0
+                o0 = dec_kernel.decode_attention(q, kc, vc, lens0)
+                others = [i for i in range(b) if i != 1]
+                if o0[1].any() or not torch.equal(o0[others], o[others]):
+                    raise RuntimeError(f"{what}: a lane of length 0")
+                kg, vg = kc.clone(), vc.clone()
+                for i, n_len in enumerate(lens.tolist()):
+                    kg[i, n_len:] = 1e4
+                    vg[i, n_len:] = -1e4
+                if not torch.equal(dec_kernel.decode_attention(q, kg, vg,
+                                                               lens), o):
+                    raise RuntimeError(f"{what}: values past the lengths "
+                                       f"changed the output")
+                n += 1
 
         # times at the serving path's shapes: prefill of 8 x 256 tokens,
         # and a decode step at the middle of the 63 steps (length 288 in
@@ -817,29 +927,52 @@ def main() -> int:
                                                  enable_gqa=True),
                                     reps=5, calls=20)[0]}
         fa["bound_ms"], fa["bound_by"] = attn_bound_ms(*flash_work(q, k))
-        mid = SERVE_PROMPT + SERVE_NEW // 2
-        qd = randn(gen, (SERVE_BATCH, 1, 32, 64), bf16)
-        kc = randn(gen, (SERVE_BATCH, SERVE_MAX_SEQ, 4, 64), bf16)
-        vc = randn(gen, (SERVE_BATCH, SERVE_MAX_SEQ, 4, 64), bf16)
-        lens = torch.full((SERVE_BATCH,), mid, dtype=torch.int32, device=dev)
-        mask = (torch.arange(SERVE_MAX_SEQ, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        dq, dk, dv = (x.transpose(1, 2) for x in (qd, kc, vc))
-        de = {"ms": cuda_ms(lambda: dec_kernel.decode_attention(
-                  qd, kc, vc, lens), reps=5, calls=20)[0],
+        # (`decode_bench`: the host's time per call, CUDA events around
+        # back-to-back calls, and the device's, a replayed CUDA graph and
+        # the profiler's device events), beside one SDPA call
+        if decode_bench.SERVING != (SERVE_BATCH, 32, 4, 64, SERVE_MAX_SEQ,
+                              SERVE_PROMPT + SERVE_NEW // 2):
+            raise RuntimeError("decode_bench.SERVING is not phase serve's "
+                               "decode step")
+        bench = decode_bench.run()
+        qd, kc, vc, lens = decode_bench.inputs(*decode_bench.SERVING)
+        de = {"ms": bench["kernel_ms"],
+              "device_ms": bench["kernel_device_ms"],
+              "profiled_ms": bench["kernel_profiled_ms"],
               "plain_ms": cuda_ms(lambda: decode_plain(qd, kc, vc, lens),
                                   reps=3, calls=5)[0],
-              "library_ms": cuda_ms(lambda: sdpa(dq, dk, dv, attn_mask=mask,
-                                                 enable_gqa=True),
-                                    reps=5, calls=20)[0]}
+              "library_ms": bench["sdpa_ms"],
+              "library_device_ms": bench["sdpa_device_ms"],
+              "library_profiled_ms": bench["sdpa_profiled_ms"],
+              "splits": dec_kernel.layout(qd, kc, vc, lens).ints[-2],
+              "splits_mixed_lengths": dec_splits}
         de["bound_ms"], de["bound_by"] = attn_bound_ms(
             *decode_work(qd, kc, lens))
-        out = {"flash": fa, "decode": de}
+        # the combine kernel alone at the same shape, on the split
+        # kernel's partials; its plain version ref.combine_splits
+        _, (m, l, acc) = dec_kernel.decode_attention_partials(qd, kc, vc,
+                                                              lens)
+        comb = lambda: dec_kernel.combine(m, l, acc, bf16)  # noqa: E731
+        parts_bytes = 4 * (m.numel() + l.numel() + acc.numel()) \
+            + 2 * qd.numel()
+        co = {"ms": decode_bench.host_ms(comb),
+              "device_ms": decode_bench.device_ms(comb),
+              "plain_ms": cuda_ms(lambda: dec_ref.combine_splits(
+                  m, l, acc, bf16), reps=3, calls=5)[0],
+              "library_ms": None,
+              "bound_ms": parts_bytes / PEAK_BYTES_S * 1e3,
+              "bound_by": "bytes"}
+        out = {"flash": fa, "decode": de, "combine": co}
         print(json.dumps({"attn_parity": out}), flush=True)
         return out, (f"{n} kernel-vs-plain checks passed (max abs err "
                      f"flash {attn_err['flash']}, decode "
-                     f"{attn_err['decode']}); flash {fa['ms']:.4f} ms, "
-                     f"decode {de['ms']:.4f} ms per call")
+                     f"{attn_err['decode']}; the decode combine "
+                     f"bit-identical); flash {fa['ms']:.4f} ms, decode "
+                     f"{de['ms']:.4f} ms per call, device "
+                     f"{de['device_ms']:.4f} ms ({de['splits']} splits; "
+                     f"SDPA {de['library_ms']:.4f}, device "
+                     f"{de['library_device_ms']:.4f}), combine "
+                     f"{co['device_ms']:.4f} ms on the device")
 
     def flash_bwd_plain(q, k, v, o, lse, do, causal=True):
         t = lambda x: x.transpose(1, 2)  # noqa: E731
@@ -1067,15 +1200,19 @@ def main() -> int:
         torch.cuda.synchronize()
         fa_kernel.flash_attention_fwd.launches = 0
         dec_kernel.decode_attention.launches = 0
+        dec_kernel.decode_attention.combine_launches = 0
         t0 = time.perf_counter()
         out, cap = bridge.capture_generate(eng, {"tokens": tokens},
                                            SERVE_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash": fa_kernel.flash_attention_fwd.launches,
-                    "decode": dec_kernel.decode_attention.launches}
+                    "decode": dec_kernel.decode_attention.launches,
+                    "decode_combine":
+                        dec_kernel.decode_attention.combine_launches}
         want = {"flash": cfg.n_layers,
-                "decode": cfg.n_layers * (SERVE_NEW - 1)}
+                "decode": cfg.n_layers * (SERVE_NEW - 1),
+                "decode_combine": cfg.n_layers * (SERVE_NEW - 1)}
         if launches != want:
             raise RuntimeError(f"serve: kernel launches {launches}, want "
                                f"{want}")
@@ -1206,6 +1343,7 @@ def main() -> int:
         spec = sweep.SweepSpec(tuple(cells),
                                engine.SimOptions(horizon=horizon),
                                policies=presets)
+        groups = shape_groups(spec)
         torch.cuda.synchronize()
         kern.launches = 0
         t0 = time.perf_counter()
@@ -1213,9 +1351,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kern.launches
-        if launches < 1 or launches != len(res.buckets):
+        if launches < 1 or launches != groups:
             raise RuntimeError(f"serve_sim: {launches} launches for "
-                               f"{len(res.buckets)} buckets")
+                               f"{groups} shape groups ({len(res.buckets)} "
+                               f"buckets)")
         for name in res.names:
             m = res[name]
             if not (bool(m["complete"].all()) and (m["served"] == 600).all()):
@@ -1225,9 +1364,12 @@ def main() -> int:
         if not (np.isfinite(sc["bandwidth_gbps"]).all()
                 and (sc["bandwidth_gbps"] > 0).all()):
             raise RuntimeError("serve_sim: non-finite or zero bandwidth")
-        kernel_ms = sum(launch_bucket(bkt, horizon, engine.CoreParams())[0]
-                        for bkt in sweep._plan(
-                            spec, sweep.policy_cells(cells, presets)))
+        group_ms, again = timed_groups(spec)
+        same_sweep(again, res, "serve_sim timed")
+        kernel_ms = sum(group_ms)
+        bucket_ms, bucketed = timed_buckets(spec)
+        same_sweep(bucketed, res, "serve_sim bucketed vs one launch per "
+                   "group")
         # one class x both organisations, default policy, n_req 120:
         # kernel against the plain engine on the card
         small = cells_for(traffic_classes[:1], 120)
@@ -1236,13 +1378,20 @@ def main() -> int:
         kernel_vs_plain(small, default_horizon(small), 256,
                         engine.CoreParams(), "serve_sim decode_steady x orgs")
         st = {"cells": len(res.names), "horizon": horizon,
-              "launches": launches, "wall_s": wall, "kernel_ms": kernel_ms,
+              "launches": launches, "shape_groups": groups,
+              "buckets": len(res.buckets), "wall_s": wall,
+              "kernel_ms": kernel_ms, "bucketed_kernel_ms": sum(bucket_ms),
+              **cycle_times(res, sweep._sweep_cells(spec), kernel_ms),
               "profile": dataclasses.asdict(prof),
               "mean_bandwidth_gbps": float(sc["bandwidth_gbps"].mean())}
         print(json.dumps({"serve_sim": st}), flush=True)
         return st, (f"{len(res.names)} cells in {wall:.3f} s, {launches} "
-                    f"launches, kernel {kernel_ms:.3f} ms; kernel == plain "
-                    f"on {len(small)} cells at n_req 120")
+                    f"launch(es), one per shape group, kernel "
+                    f"{kernel_ms:.3f} ms ({st['bucketed_kernel_ms']:.3f} ms "
+                    f"over {len(bucket_ms)} bucket launches), "
+                    f"{st['us_per_cycle']:.4f} us per cycle of the slowest "
+                    f"cell; kernel == plain on {len(small)} cells at n_req "
+                    f"120")
 
     def step_profile(step_fn, state, batch):
         """One train step under torch.profiler: its wall time (the
@@ -1911,9 +2060,16 @@ def main() -> int:
             "shape": "5 cells (L4 IO models x stream.3), n_req 600, "
                      "rank axis 8",
             "grid_ms": stats["grid_kernel_ms"],
+            "grid_launches": stats["launches"],
+            "grid_bucketed_ms": stats["grid_bucketed_ms"],
+            "grid_bucket_launches": stats["buckets"],
             "grid_one_launch_ms": stats["grid_one_launch_ms"],
+            "grid_us_per_cycle": stats["us_per_cycle"],
+            "grid_us_per_cycle_run": stats["us_per_cycle_run"],
             "serve_sim_launches": sim_stats["launches"],
             "serve_sim_kernel_ms": sim_stats["kernel_ms"],
+            "serve_sim_bucketed_ms": sim_stats["bucketed_kernel_ms"],
+            "serve_sim_us_per_cycle": sim_stats["us_per_cycle"],
             "check": "ok"}, {
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_fwd_tc.cu",
@@ -1945,6 +2101,14 @@ def main() -> int:
             "max_abs_err": attn_err["decode"], **attn["decode"],
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
             "check": "ok"}, {
+            "name": "decode_attention_combine", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
+            "launches": serve_stats["launches"]["decode_combine"],
+            "max_abs_err": 0.0, **attn["combine"],
+            "shape": f"partials of {attn['decode']['splits']} splits of the "
+                     f"decode shape, float32 -> o bf16",
+            "check": "bit-identical"}, {
             "name": "smla_pipe_cascaded", "route": "cuda",
             "source": "src/repro_torch/csrc/smla_pipe.cu",
             "replaces": "src/repro/kernels/smla_pipe/kernel.py:54",

@@ -4,12 +4,16 @@ sim_cell_blocks``).
 
 The reference fuses the whole chunked per-cycle pipeline of a block of
 cells into one Pallas kernel and writes back only the metrics.  Here one
-CUDA thread runs one cell's whole chunked simulation
-(``csrc/smla_cycle.cuh``, launched by ``csrc/smla_engine.cu``): a cell's
-cycles form a serial chain, cells are independent.  The kernel writes the
-final counters, ``served``, ``c_finish``, ``c_inst`` and ``chunks_run``;
-`engine._metrics` — the same function the plain version ends in — turns
-them into the metrics dict in torch on the card.
+warp runs one cell's whole chunked simulation (``csrc/smla_cycle.cuh``,
+launched by ``csrc/smla_engine.cu``): a cell's cycles form a serial
+chain, which the warp shortens by taking each cycle's scans over window
+slots and ranks as warp collectives, with the cell's state in shared
+memory; cells are independent, a few warps to a block.  Each cell
+carries its own chunk width, so cells of different makespan buckets
+share one launch.  The kernel writes the final counters, ``served``,
+``c_finish``, ``c_inst`` and ``chunks_run``; `engine._metrics` — the
+same function the plain version ends in — turns them into the metrics
+dict in torch on the card.
 
 Build: route (b), by `repro_torch._build` — ``nvcc`` into a shared
 library with a plain C interface, loaded with ``ctypes``, at first use.
@@ -27,7 +31,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch._build import bind, compile_library, nvcc, stream_ptr
+from repro_torch._build import (bind, compile_library, nvcc, on_device,
+                                stream_ptr)
 from repro_torch.core.smla import engine
 
 KERNEL_SOURCES = ("smla_cycle.cuh", "smla_engine.cu")
@@ -40,25 +45,33 @@ CTX_COLUMNS = ("n_req", "t_rcd", "t_rp", "t_cl", "t_wr", "t_wtr", "t_pd",
                "t_sr", "t_xsr", "refresh_en", "t_rfc_eff", "L", "slotted",
                "ecc_every", "n_ranks", "fcfs", "closed_page", "per_bank",
                "drain_full", "drain_opp", "sr", "postpone", "ooo_row",
-               "ooo_dir")
+               "ooo_dir", "chunk", "k_max")
 #: per-rank int32 rows (``enum RankRow``)
 RANK_ROWS = ("t_refi_eff", "dur", "group_of_rank", "ref_next0")
 #: int32 trace fields (``enum Trace``); inst travels as float32
 TRACE_FIELDS = ("rank", "bank", "row", "wr")
 #: launch dimensions (``enum Dim``)
-DIM_FIELDS = ("N", "C", "M", "R", "B", "Wd", "horizon", "chunk", "k_max",
-              "mshr_window", "q_size", "wq_hi", "wq_lo")
+DIM_FIELDS = ("N", "C", "M", "R", "B", "Wd", "horizon", "mshr_window",
+              "q_size", "wq_hi", "wq_lo")
+#: ranks per cell at most: the kernel gives each a lane and a mask bit
+MAX_RANKS = 32
+#: shared memory one block may use on Hopper (bytes)
+MAX_SMEM = 232448
+#: cells (warps) per block at most
+MAX_WARPS = 4
+#: horizons the kernel takes are below this (``BIG`` of the header)
+MAX_HORIZON = 2**30
 
 
 def load_library(path) -> ctypes.CDLL:
     """Load a built engine library and declare its C interface."""
     lib = ctypes.CDLL(str(path))
-    lib.smla_scratch_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.smla_scratch_words.restype = None
+    lib.smla_cell_words.argtypes = [ctypes.c_void_p]
+    lib.smla_cell_words.restype = ctypes.c_longlong
     if hasattr(lib, "smla_sim_launch"):
-        bind(lib, "smla_sim_launch", 11, (ctypes.c_int, ctypes.c_void_p))
+        bind(lib, "smla_sim_launch", 9, (ctypes.c_int, ctypes.c_void_p))
     if hasattr(lib, "smla_sim_host"):
-        bind(lib, "smla_sim_host", 11)
+        bind(lib, "smla_sim_host", 9)
     return lib
 
 
@@ -73,20 +86,39 @@ def build() -> ctypes.CDLL:
 # packing: engine._prepare's context -> the kernel's flat buffers
 # ----------------------------------------------------------------------------
 
-def pack(ctx: dict, horizon: int, chunk: int | None) -> dict:
+def cell_chunks(horizon: int, chunk, n: int) -> tuple[list, list]:
+    """Each of `n` cells' (chunk width, chunk count) for `horizon`:
+    `chunk` is one width (int or None) for every cell, or a sequence of
+    one width per cell."""
+    widths = ([chunk] * n if chunk is None or isinstance(chunk, (int,
+                                                               np.integer))
+              else list(chunk))
+    if len(widths) != n:
+        raise ValueError(f"{len(widths)} chunk widths for {n} cells")
+    return ([engine.effective_chunk(horizon, w) for w in widths],
+            [engine.n_chunks(horizon, w) for w in widths])
+
+
+def pack(ctx: dict, horizon: int, chunk) -> dict:
     """The kernel's inputs from `engine._prepare`'s context: contiguous
     int32 / float32 tensors on the context's device, plus the host-side
-    dims arrays."""
+    dims arrays.  `chunk` is one width for every cell or one per cell
+    (`cell_chunks`); it fills the context's last two columns."""
     N, pol = ctx["N"], ctx["pol"]
+    dev = ctx["n_req"].device
+    widths, counts = cell_chunks(horizon, chunk, N)
+    per_cell = {"chunk": widths, "k_max": counts}
     cols = []
     for name in CTX_COLUMNS:
+        if name in per_cell:
+            cols.append(torch.tensor(per_cell[name], dtype=torch.int32,
+                                     device=dev))
+            continue
         v = pol[name] if name in pol else ctx[name]
         cols.append(v.reshape(N).to(torch.int32))
     core = ctx["core"]
     dims = {"N": N, "C": ctx["C"], "M": ctx["M"], "R": ctx["R"],
             "B": ctx["B"], "Wd": ctx["Wd"], "horizon": int(horizon),
-            "chunk": engine.effective_chunk(horizon, chunk),
-            "k_max": engine.n_chunks(horizon, chunk),
             "mshr_window": core.mshr * core.window, "q_size": core.q_size,
             "wq_hi": ctx["wq_hi"], "wq_lo": ctx["wq_lo"]}
     tr = ctx["traces"]
@@ -105,9 +137,9 @@ def pack(ctx: dict, horizon: int, chunk: int | None) -> dict:
 
 def check_packed(p: dict, device: torch.device) -> None:
     """Raise unless every buffer is a contiguous tensor of the kernel's
-    dtype and shape on `device`, and the integers that reach C's
-    truncating '/' and '%' are non-negative (so they agree with JAX's
-    floor semantics)."""
+    dtype and shape on `device`, the rank axis fits a warp's lanes, and
+    the integers that reach C's truncating '/' and '%' are non-negative
+    (so they agree with JAX's floor semantics)."""
     d = dict(zip(DIM_FIELDS, (int(v) for v in p["dims"])))
     N, C, M, R = d["N"], d["C"], d["M"], d["R"]
     want = {"ctx": ((N, len(CTX_COLUMNS)), torch.int32),
@@ -122,9 +154,15 @@ def check_packed(p: dict, device: torch.device) -> None:
                              f"{x.dtype} on {x.device} (contiguous="
                              f"{x.is_contiguous()}), want {shape} {dtype} "
                              f"contiguous on {device}")
-    if min(d[k] for k in ("N", "C", "M", "R", "B", "Wd", "horizon", "chunk",
-                          "k_max")) < 1:
+    if min(d[k] for k in ("N", "C", "M", "R", "B", "Wd", "horizon")) < 1:
         raise ValueError(f"kernel dims must be positive: {d}")
+    if R > MAX_RANKS:
+        raise ValueError(f"kernel rank axis {R} > {MAX_RANKS}: a warp "
+                         f"takes one rank per lane")
+    if d["horizon"] >= MAX_HORIZON:
+        raise ValueError(f"horizon {d['horizon']} >= {MAX_HORIZON}: the "
+                         f"kernel tells a scheduling candidate by its score "
+                         f"above -2**30, which needs arrivals below it")
     ctx = p["ctx"]
     bad = bool((ctx < 0).any()) or bool((p["rank"] < 0).any())
     bad = bad or bool((p["tr"][:, :2] < 0).any())
@@ -132,41 +170,34 @@ def check_packed(p: dict, device: torch.device) -> None:
         raise ValueError("kernel inputs hold negative timings, ranks or "
                          "banks: C's truncating '/' and '%' would disagree "
                          "with the reference's floor semantics")
-    if bool((ctx[:, CTX_COLUMNS.index("n_req")] < 1).any()) or bool(
-            (ctx[:, CTX_COLUMNS.index("ecc_every")] < 1).any()) or bool(
-            (ctx[:, CTX_COLUMNS.index("L")] < 1).any()):
-        raise ValueError("kernel inputs need n_req, ecc_every and layers "
-                         ">= 1")
+    for name in ("n_req", "ecc_every", "L", "chunk", "k_max"):
+        if bool((ctx[:, CTX_COLUMNS.index(name)] < 1).any()):
+            raise ValueError("kernel inputs need n_req, ecc_every, layers, "
+                             "chunk and k_max >= 1")
 
 
-def scratch_words(lib: ctypes.CDLL, dims: np.ndarray) -> tuple[int, int]:
-    """(int32, float32) scratch words per cell, from the library itself."""
-    out = np.zeros(2, np.int64)
-    lib.smla_scratch_words(dims.ctypes.data, out.ctypes.data)
-    return int(out[0]), int(out[1])
+def cell_words(lib: ctypes.CDLL, dims: np.ndarray) -> int:
+    """32-bit words of one cell's state (a warp's shared memory), from the
+    library itself."""
+    return int(lib.smla_cell_words(dims.ctypes.data))
 
 
-def alloc_buffers(lib, p: dict, device) -> dict:
-    """Scratch and output buffers (``torch.empty``; the kernel initialises
-    every word it reads)."""
+def alloc_buffers(p: dict, device) -> dict:
+    """Output buffers (``torch.empty``; the kernel writes every word)."""
     N, C = int(p["dims"][0]), int(p["dims"][1])
-    wi, wf = scratch_words(lib, p["dims"])
     e = torch.empty
-    return {"scratch_i": e(N * wi, dtype=torch.int32, device=device),
-            "scratch_f": e(N * wf, dtype=torch.float32, device=device),
-            "out_i": e((N, len(engine.SUMMARY_INT)), dtype=torch.int32,
+    return {"out_i": e((N, len(engine.SUMMARY_INT)), dtype=torch.int32,
                        device=device),
             "out_core": e((N, 2, C), dtype=torch.int32, device=device),
             "out_f": e((N, C), dtype=torch.float32, device=device)}
 
 
 def pointer_args(p: dict, bufs: dict) -> list:
-    """The 11 pointer arguments shared by the CUDA launcher and the host
+    """The 9 pointer arguments shared by the CUDA launcher and the host
     build, in their C order."""
     return [p["dims"].ctypes.data, p["fdims"].ctypes.data,
             p["ctx"].data_ptr(), p["rank"].data_ptr(), p["inst"].data_ptr(),
-            p["tr"].data_ptr(), bufs["scratch_i"].data_ptr(),
-            bufs["scratch_f"].data_ptr(), bufs["out_i"].data_ptr(),
+            p["tr"].data_ptr(), bufs["out_i"].data_ptr(),
             bufs["out_core"].data_ptr(), bufs["out_f"].data_ptr()]
 
 
@@ -178,21 +209,30 @@ def unpack(bufs: dict) -> dict:
     return out
 
 
-def threads_per_block(n_cells: int, device: torch.device) -> int:
-    """Small blocks: spread the cells over every SM (at most a warp)."""
+def warps_per_block(n_cells: int, words: int, device: torch.device) -> int:
+    """Cells (warps) per block: few enough that the cells spread over
+    every SM (at most MAX_WARPS), and their state fits the block's shared
+    memory; raises if one cell's does not."""
+    if 4 * words > MAX_SMEM:
+        raise ValueError(f"one cell's state is {4 * words} B of shared "
+                         f"memory (> {MAX_SMEM})")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(32, -(-n_cells // sms)))
+    return max(1, min(MAX_WARPS, -(-n_cells // sms),
+                      MAX_SMEM // (4 * words)))
 
 
 def sim_cell_blocks(params: dict, traces: dict, *, horizon: int,
-                    core: engine.CoreParams, banks: int,
-                    chunk: int | None) -> dict:
+                    core: engine.CoreParams, banks: int, chunk) -> dict:
     """Batched simulation (leading cell axis on every leaf), same contract
-    as the reference's ``sim_cell_blocks``.  CPU tensors run the plain
-    PyTorch version; CUDA tensors run the kernel, and anything the kernel
-    cannot take raises."""
+    as the reference's ``sim_cell_blocks``; `chunk` may also be a sequence
+    of one width per cell (the sweep's one launch per shape group).  CPU
+    tensors run the plain PyTorch version (one width only); CUDA tensors
+    run the kernel, and anything the kernel cannot take raises."""
     dev = traces["inst"].device
     if dev.type == "cpu":
+        if not (chunk is None or isinstance(chunk, (int, np.integer))):
+            raise ValueError("sim_cell_blocks: the plain version takes one "
+                             "chunk width per batch")
         return engine._sim_core(params, traces, horizon, core, banks, chunk)
     if dev.type != "cuda":
         raise ValueError(f"sim_cell_blocks: unsupported device {dev}")
@@ -200,10 +240,10 @@ def sim_cell_blocks(params: dict, traces: dict, *, horizon: int,
     ctx = engine._prepare(params, traces, core, banks)
     p = pack(ctx, horizon, chunk)
     check_packed(p, dev)
-    bufs = alloc_buffers(lib, p, dev)
-    with torch.cuda.device(dev):
-        err = lib.smla_sim_launch(*pointer_args(p, bufs),
-                                  threads_per_block(ctx["N"], dev),
+    bufs = alloc_buffers(p, dev)
+    warps = warps_per_block(ctx["N"], cell_words(lib, p["dims"]), dev)
+    with on_device(dev):
+        err = lib.smla_sim_launch(*pointer_args(p, bufs), warps,
                                   stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"smla_sim_kernel launch failed: CUDA error "

@@ -844,12 +844,19 @@ def batched_simulate(params: dict, traces: dict, options: SimOptions,
     have nothing to map to on one card and are not ported."""
     from repro_torch.core.smla import cuda_engine    # lazy: imports us back
     options = _require_options(options, "batched_simulate").resolved()
+    return run_batch(cuda_engine.sim_cell_blocks, params, traces, options,
+                     core, banks, options.chunk)
+
+
+def run_batch(launch, params: dict, traces: dict, options: SimOptions,
+              core: CoreParams, banks: int, chunk) -> dict:
+    """`batched_simulate` with the launch (`cuda_engine.sim_cell_blocks`'s
+    signature) and the chunk (one width, or one per cell) given."""
     dev = options.torch_device()
-    out = cuda_engine.sim_cell_blocks(
-        _with_timing_defaults(_on_device(params, dev)),
-        _with_wr(_on_device(traces, dev)),
-        horizon=int(options.horizon), core=core, banks=banks,
-        chunk=options.chunk)
+    out = launch(_with_timing_defaults(_on_device(params, dev)),
+                 _with_wr(_on_device(traces, dev)),
+                 horizon=int(options.horizon), core=core, banks=banks,
+                 chunk=chunk)
     if options.validate:
         _validate_metrics(out)
     return out

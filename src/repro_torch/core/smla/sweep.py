@@ -20,8 +20,13 @@ padded with duplicates of their own fastest cell.  With the default
 makespan (`CHUNK_LADDER`).  Chunk width never changes any metric except
 the `chunks_run` diagnostic.  The plan — buckets, their order, their
 chunk widths — is the reference's, so ``names``, ``chunks`` and every
-metric match it cell for cell.  Each bucket is one
-`engine.batched_simulate` call: on a CUDA device one kernel launch.
+metric match it cell for cell.  On the CPU each bucket is one
+`engine.batched_simulate` call of the plain version.  On a CUDA device
+each shape group is one kernel launch, whatever its buckets: every cell
+carries its bucket's chunk width into the kernel, the pad duplicates
+stay out, and the outputs are split back per bucket in plan order (the
+cells are independent, so each cell's metrics, ``chunks_run`` included,
+are those of its bucket's own launch).
 
 Not ported in this slice (the reference's ``sweep.py`` keeps them): the
 journal and resume, retry and ``on_error``, the streaming producer thread,
@@ -36,7 +41,7 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.core.smla import engine
+from repro_torch.core.smla import cuda_engine, engine
 from repro_torch.core.smla.config import (ControllerPolicy, StackConfig,
                                           paper_configs)
 from repro_torch.core.smla.engine import CoreParams, SimOptions
@@ -276,24 +281,61 @@ def _build_arrays(bkt: _Bucket) -> tuple[dict, dict]:
                        bkt.n_req_max)
 
 
-def run_sweep(spec: SweepSpec) -> SweepResult:
-    """Execute every cell (times every policy, when `spec.policies` is
-    set) in makespan buckets, one batched engine call per bucket.  Metrics
-    are those of per-cell `engine.simulate` with the same chunk width;
-    the chunk width moves only `chunks_run`."""
-    cells = (list(spec.cells) if spec.policies is None
-             else policy_cells(spec.cells, spec.policies))
+def _numpy(out: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _run_buckets(spec: SweepSpec, plan: list[_Bucket]) -> list[dict]:
+    """One batched engine call per bucket: each bucket's outputs, a row
+    per position of the bucket (pad duplicates included)."""
+    opts = spec.options
+    return [_numpy(engine.batched_simulate(*_build_arrays(bkt),
+                                           opts.with_chunk(bkt.chunk),
+                                           spec.core, bkt.banks))
+            for bkt in plan]
+
+
+def _run_groups(spec: SweepSpec, plan: list[_Bucket], launch) -> list[dict]:
+    """One `launch` (`cuda_engine.sim_cell_blocks`'s signature) per shape
+    group: the group's cells, each once, each with its bucket's chunk
+    width; returns each bucket's outputs as `_run_buckets` does."""
+    outs: list = [None] * len(plan)
+    groups: dict[int, list[int]] = {}
+    for b, bkt in enumerate(plan):
+        groups.setdefault(id(bkt.group), []).append(b)
+    for members in groups.values():
+        first = plan[members[0]]
+        row_of: dict[int, int] = {}
+        widths = []
+        for b in members:
+            for j in plan[b].positions:
+                if j not in row_of:
+                    row_of[j] = len(row_of)
+                    widths.append(plan[b].chunk)
+        params, traces = stack_cells([first.group[j] for j in row_of],
+                                     first.r_max, first.n_req_max)
+        out = _numpy(engine.run_batch(launch, params, traces, spec.options,
+                                      spec.core, first.banks, widths))
+        for b in members:
+            rows = [row_of[j] for j in plan[b].positions]
+            outs[b] = {k: v[rows] for k, v in out.items()}
+    return outs
+
+
+def _sweep_cells(spec: SweepSpec) -> list[SweepCell]:
+    return (list(spec.cells) if spec.policies is None
+            else policy_cells(spec.cells, spec.policies))
+
+
+def _assemble(spec: SweepSpec, cells: list[SweepCell], plan: list[_Bucket],
+              outs: list[dict]) -> SweepResult:
+    """The result from each bucket's outputs (rows in bucket order)."""
     opts = spec.options
     n = len(cells)
     per_cell: list = [None] * n
     chunks = [0] * n
     meta_all = []
-    for bkt in _plan(spec, cells):
-        params, traces = _build_arrays(bkt)
-        out = engine.batched_simulate(params, traces,
-                                      opts.with_chunk(bkt.chunk), spec.core,
-                                      bkt.banks)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+    for bkt, out in zip(plan, outs):
         eff = engine.effective_chunk(opts.horizon, bkt.chunk)
         meta = {"cells": [], "chunk": eff, "est_cycles": [],
                 "measured_cycles": [], "n_rows": len(bkt.positions),
@@ -317,3 +359,18 @@ def run_sweep(spec: SweepSpec) -> SweepResult:
     return SweepResult(names=[c.name for c in cells], cells=per_cell,
                        chunks=chunks, buckets=meta_all,
                        device=opts.torch_device().type)
+
+
+def run_sweep(spec: SweepSpec) -> SweepResult:
+    """Execute every cell (times every policy, when `spec.policies` is
+    set) in makespan buckets: on the CPU one batched engine call per
+    bucket, on a CUDA device one kernel launch per shape group.  Metrics
+    are those of per-cell `engine.simulate` with the same chunk width;
+    the chunk width moves only `chunks_run`."""
+    cells = _sweep_cells(spec)
+    plan = _plan(spec, cells)
+    if spec.options.torch_device().type == "cuda":
+        outs = _run_groups(spec, plan, cuda_engine.sim_cell_blocks)
+    else:
+        outs = _run_buckets(spec, plan)
+    return _assemble(spec, cells, plan, outs)

@@ -5,46 +5,55 @@
 //        -shared -Xcompiler -fPIC
 // and loaded with ctypes (plain C interface, no PyTorch headers).
 //
-// Design: one thread runs one cell's whole chunked simulation
+// Design: one warp runs one cell's whole chunked simulation
 // (smla_cycle.cuh).  A cell's cycles form a serial dependency chain (each
-// cycle's scheduler reads the state the previous cycle wrote), so nothing
-// inside a cell is parallel at this level, while cells are independent.
-// What bounds the kernel is therefore the latency of the slowest cell's
-// chain of dependent loads and branches, not device-memory bytes (inputs
-// are a few KB per cell, outputs ~100 B) nor peak operation rate.  The
-// state lives in scratch buffers the wrapper allocates (cell-major, so one
-// thread's state is contiguous and stays in L1); blocks are small so that
-// a few hundred cells spread over many SMs.  A later version can give each
-// cell a warp, with lanes over window slots, state in shared memory and
-// warp-shuffle argmax/segment reductions.
+// cycle's scheduler reads the state the previous cycle wrote), while
+// cells are independent.  What bounds the kernel is therefore the latency
+// of the slowest cell's chain, not device-memory bytes (inputs are a few
+// KB per cell, outputs ~100 B) nor peak operation rate.  The warp cuts the
+// chain: its lanes take the window slots and the ranks, so each scan over
+// them is one warp collective, and the state sits in the warp's slice of
+// shared memory.  A block holds a few warps (cells), so a grid's cells
+// spread over every SM; each cell carries its own chunk width, so a whole
+// shape group of a sweep, whatever its makespan buckets, is one launch.
 #include <cuda_runtime.h>
 
 #include "smla_cycle.cuh"
 
-__global__ void smla_sim_kernel(smla::Dims d, smla::Buffers b) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < d.v[smla::D_N]) smla::sim_cell(d, b, c);
+__global__ void smla_sim_kernel(smla::Dims d, smla::Buffers b, int warps) {
+  extern __shared__ int32_t smem[];
+  const int w = threadIdx.x / smla::LANES;
+  const int64_t c = (int64_t)blockIdx.x * warps + w;
+  if (c >= d.v[smla::D_N]) return;  // the whole warp leaves
+  const smla::DeviceWarp warp{(int)(threadIdx.x % smla::LANES)};
+  smla::sim_cell(warp, d, b, c, smem + w * smla::cell_words(d));
 }
 
-extern "C" void smla_scratch_words(const int32_t* dims, int64_t* out) {
+// 32-bit words of one cell's state (shared memory per warp).
+extern "C" long long smla_cell_words(const int32_t* dims) {
   const float fd[2] = {0.0f, 0.0f};
-  const smla::Dims d = smla::make_dims(dims, fd);
-  out[0] = smla::scratch_i_words(d);
-  out[1] = smla::scratch_f_words(d);
+  return smla::cell_words(smla::make_dims(dims, fd));
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches `warps` cells per block on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int smla_sim_launch(const int32_t* dims, const float* fdims,
                                const int32_t* ctx, const int32_t* rank,
                                const float* inst, const int32_t* tr,
-                               int32_t* scratch_i, float* scratch_f,
                                int32_t* out_i, int32_t* out_core,
-                               float* out_f, int threads, void* stream) {
+                               float* out_f, int warps, void* stream) {
   const smla::Dims d = smla::make_dims(dims, fdims);
-  const smla::Buffers b{ctx, rank, inst, tr, scratch_i, scratch_f,
-                        out_i, out_core, out_f};
+  const smla::Buffers b{ctx, rank, inst, tr, out_i, out_core, out_f};
   const int n = d.v[smla::D_N];
-  const int blocks = (n + threads - 1) / threads;
-  smla_sim_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(d, b);
+  const int blocks = (n + warps - 1) / warps;
+  const size_t smem = sizeof(int32_t) * smla::cell_words(d) * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        smla_sim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return (int)err;
+  }
+  smla_sim_kernel<<<blocks, warps * smla::LANES, smem,
+                    (cudaStream_t)stream>>>(d, b, warps);
   return (int)cudaGetLastError();
 }

@@ -24,3 +24,49 @@ def decode_attend(q, k_cache, v_cache, lengths):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bksh->bkgh", probs, v_cache.float())
     return out.to(q.dtype)
+
+
+def split_partials(q, k_cache, v_cache, lengths, rows: int):
+    """The split kernel's arithmetic, plainly: the cache rows cut into
+    splits of `rows` (the last one ends at S), each split's softmax state
+    over its rows below the lane's length.  q (B, Hkv, G, hd); caches (B,
+    Hkv, S, hd).  Returns m, l (B, Hkv, n_splits, G) and acc (B, Hkv,
+    n_splits, G, hd), float32; a split with no row below the length gives
+    m = -inf, l = 0, acc = 0."""
+    b, hkv, g, hd = q.shape
+    s = k_cache.shape[2]
+    n_splits = -(-s // rows)
+    scores = torch.einsum("bkgh,bksh->bkgs", q.float(),
+                          k_cache.float()) / math.sqrt(hd)
+    pos = torch.arange(s, device=q.device)
+    valid = pos[None, :] < lengths.clamp(0, s)[:, None]          # (B, S)
+    ms, ls, accs = [], [], []
+    for i in range(n_splits):
+        sl = slice(i * rows, min((i + 1) * rows, s))
+        ok = valid[:, None, None, sl]
+        sc = torch.where(ok, scores[..., sl], -math.inf)
+        m = sc.amax(-1)
+        p = torch.where(ok, torch.exp(sc - torch.where(
+            torch.isinf(m), 0.0, m)[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bksh->bkgh", p,
+                                 v_cache[:, :, sl].float()))
+    return torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2)
+
+
+def combine_splits(m, l, acc, dtype):
+    """Merge split partials (`split_partials`' layout) in split order, as
+    the combine kernel does, step for step: M the largest m; each split
+    weighted by exp(m - M) (0 for an empty split), the weighted l and acc
+    summed split after split with every product and sum rounded to
+    float32 on its own; o = acc / max(l, 1e-30), so a lane with no row
+    gives zeros.  Returns (B, Hkv, G, hd) in `dtype`."""
+    big = m.amax(2, keepdim=True)
+    w = torch.where(m == -math.inf, 0.0, torch.exp(m - big))
+    total_l = torch.zeros_like(m[:, :, 0])
+    total = torch.zeros_like(acc[:, :, 0])
+    for i in range(m.shape[2]):
+        total_l = total_l + w[:, :, i] * l[:, :, i]
+        total = total + w[:, :, i, :, None] * acc[:, :, i]
+    return (total / total_l.clamp_min(1e-30)[..., None]).to(dtype)

@@ -2,9 +2,15 @@
 in the model layout on the CPU) against the reference's plain version and
 its Pallas kernel in interpret mode, float32, same numpy inputs, with
 lengths that skip whole chunks: atol 1e-5 (sums in a different order).
-On the CPU the port's wrapper runs the plain version; its CUDA kernel
-runs only in ``chip_smoke.py``, which holds it against this plain
-version."""
+On the CPU the port's wrapper runs the plain version; its CUDA kernels
+run only in ``chip_smoke.py``, which holds them against these plain
+versions.  The split-KV arithmetic (`ref.split_partials`, whose merge
+`ref.combine_splits` follows the combine kernel step for step) is held
+against the reference here, and the wrapper's host side — the split
+count, the memoised layout checks — is checked without a card."""
+import inspect
+import math
+
 import numpy as np
 import pytest
 
@@ -20,6 +26,12 @@ from repro_torch.kernels.decode_attention import ops as PO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as PR  # noqa: E402
 
 ATOL = 1e-5
+#: split partials merged vs one softmax over the whole cache, float32:
+#: each split takes its own max and exps and the merge rescales by
+#: exp(m - M), so the sums run in another order and round differently in
+#: the last bits; relative to max |ref|
+SPLIT_RTOL = 1e-6
+SMAX = 512
 
 
 def _inputs(seed, b, hkv, g, s, hd, lengths):
@@ -91,3 +103,93 @@ def test_kernel_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         PK.decode_attention(q, c, c, torch.ones(1, dtype=torch.int32))
     assert PK.decode_attention.launches == 0
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, SMAX])
+@pytest.mark.parametrize("n_splits", [1, 2, 5, 8])
+def test_combine_splits_matches_reference(n_splits, length):
+    """Split partials merged by `ref.combine_splits` against the
+    reference's plain version and its interpret-mode Pallas kernel
+    (Smax % 256 == 0, where that kernel is right).  The second lane is
+    full, so the split count is the batch's; at 8 splits of 64 rows a
+    length of 1, 63 or 64 leaves splits wholly past the first lane's
+    length, which must be the empty partial."""
+    args = _inputs(n_splits * 100 + length, 2, 2, 4, SMAX, 32,
+                   [length, SMAX])
+    rows = -(-SMAX // n_splits)
+    tq, tk, tv, tl = map(torch.from_numpy, args)
+    m, l, acc = PR.split_partials(tq, tk, tv, tl, rows)
+    assert m.shape == (2, 2, n_splits, 4) and acc.shape[-1] == 32
+    empty = [i for i in range(n_splits) if i * rows >= length]
+    for i in empty:
+        assert bool((m[0, :, i] == -math.inf).all())
+        assert not l[0, :, i].any() and not acc[0, :, i].any()
+    if n_splits == 8 and length <= 64:
+        assert empty, "a split wholly past the lane's length"
+    got = PR.combine_splits(m, l, acc, torch.float32).numpy()
+    for want in (np.asarray(RR.decode_attend(*map(jnp.asarray, args))),
+                 np.asarray(RK.decode_attention(*map(jnp.asarray, args),
+                                                bk=256, interpret=True))):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=SPLIT_RTOL * np.abs(want).max())
+
+
+def test_length_zero_gives_zeros():
+    """A lane of length 0: every split empty, zeros out, as the
+    reference's Pallas kernel gives (its ref.py gives the mean of V)."""
+    args = _inputs(9, 2, 2, 2, SMAX, 16, [0, 70])
+    m, l, acc = PR.split_partials(*map(torch.from_numpy, args), 128)
+    got = PR.combine_splits(m, l, acc, torch.float32).numpy()
+    assert not got[0].any()
+    kern = np.asarray(RK.decode_attention(*map(jnp.asarray, args), bk=256,
+                                          interpret=True))
+    assert not kern[0].any()
+    np.testing.assert_allclose(got[1], kern[1], rtol=0,
+                               atol=SPLIT_RTOL * np.abs(kern[1]).max())
+
+
+@pytest.mark.parametrize("smax", [1, 64, 300, 512, 4096])
+@pytest.mark.parametrize("b,hkv", [(1, 1), (8, 4), (64, 8)])
+def test_split_plan(smax, b, hkv):
+    """The host's split count: whole 64-row chunks per split, every split
+    starting below Smax, about two blocks per SM where the cache has the
+    chunks for it; shapes only, no lengths."""
+    assert "lengths" not in inspect.signature(PK.split_plan).parameters
+    n_sm = 132
+    splits, rows = PK.split_plan(smax, b, hkv, n_sm)
+    assert rows % PK.CHUNK == 0 and rows >= PK.CHUNK
+    assert (splits - 1) * rows < smax <= splits * rows
+    chunks = -(-smax // PK.CHUNK)
+    want = PK.BLOCKS_PER_SM * n_sm
+    assert splits * b * hkv >= min(want, chunks * b * hkv)
+    if (b, hkv, smax) == (8, 4, 512):        # the serving shape
+        assert (splits, rows) == (8, 64)
+    # a cache of no rows still launches one (empty) split per lane
+    assert PK.split_plan(0, b, hkv, n_sm) == (1, PK.CHUNK)
+
+
+def test_layout_checks_run_once_per_layout(monkeypatch):
+    """`kernel.layout` checks a layout once; the lengths' values never
+    enter it; a changed layout (a strided cache, another dtype) is
+    checked anew."""
+    calls = []
+    monkeypatch.setattr(PK, "_LAYOUTS", {})
+    monkeypatch.setattr(PK, "check_inputs", lambda *a: calls.append(a))
+    monkeypatch.setattr(PK, "sm_count", lambda index: 132)
+
+    class Lib:
+        @staticmethod
+        def decode_attention_smem(hd, g, cache_dtype):
+            return 1024
+    monkeypatch.setattr(PK, "build", lambda: Lib)
+    q = torch.zeros((8, 1, 32, 64), dtype=torch.bfloat16)
+    cache = torch.zeros((8, 512, 4, 64), dtype=torch.bfloat16)
+    lay = PK.layout(q, cache, cache, torch.full((8,), 288, dtype=torch.int32))
+    again = PK.layout(q, cache, cache, torch.ones(8, dtype=torch.int32))
+    assert again is lay and len(calls) == 1
+    assert lay.ints[-2:] == (8, 64)
+    wide = torch.zeros((8, 512, 8, 64), dtype=torch.bfloat16)[:, :, :4]
+    PK.layout(q, wide, wide, torch.ones(8, dtype=torch.int32))
+    assert len(calls) == 2
+    PK.layout(q.float(), cache, cache, torch.ones(8, dtype=torch.int32))
+    assert len(calls) == 3

@@ -4,17 +4,50 @@ inputs for the JAX reference (``repro``) and the PyTorch port
 exact, floats to the golden grid's rtol=1e-6 — `tests/test_golden.py`;
 floats may reassociate across the two frameworks)."""
 import dataclasses
+import shutil
 
 import numpy as np
+import pytest
+import torch
 
 from repro.core.smla import engine as ref_engine
+from repro_torch import _build
 from repro_torch.convert import from_reference
 from repro_torch.core.smla import config as port_config
+from repro_torch.core.smla import cuda_engine
 from repro_torch.core.smla import engine as port_engine
 from repro_torch.core.smla import faults as port_faults
 from repro_torch.core.smla import sweep as port_sweep
 
 RTOL = 1e-6
+
+#: the cycle kernel's host build: its header around a plain host loop
+#: whose warp is 32 lanes taken in turn (``csrc/smla_host.cpp``)
+HOST_SOURCES = ("smla_cycle.cuh", "smla_host.cpp")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+def host_library():
+    """The g++ build of the cycle kernel's logic (skips without g++)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return cuda_engine.load_library(_build.compile_library(
+        "g++", HOST_FLAGS, HOST_SOURCES, "smla_host"))
+
+
+def host_launch(lib):
+    """A launcher with `cuda_engine.sim_cell_blocks`'s signature that runs
+    the wrapper's steps on CPU tensors, the host loop in place of the
+    launch; `chunk` may be one width per cell, as on the card."""
+    def launch(params, traces, *, horizon, core, banks, chunk):
+        ctx = port_engine._prepare(params, traces, core, banks)
+        p = cuda_engine.pack(ctx, horizon, chunk)
+        cuda_engine.check_packed(p, torch.device("cpu"))
+        bufs = cuda_engine.alloc_buffers(p, "cpu")
+        assert lib.smla_sim_host(*cuda_engine.pointer_args(p, bufs)) == 0
+        return port_engine._metrics(params, ctx, cuda_engine.unpack(bufs),
+                                    horizon)
+    return launch
 
 
 def port_policy(pol):
