@@ -121,9 +121,21 @@ and the script exits non-zero):
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
-             r, k, v; timed beside its plain version at the training shape;
-             the autograd Function's backward timed there, its gradients
-             equal, bit for bit, whichever forward ran.
+             r, k, v; strong decays (logw = -exp(n + 2), sums of hundreds
+             within a chunk) at (2,3,128,32) chunk 64 and 16 and the
+             training shape: finite, held to the sequential oracle and a
+             float64 witness, and to the plain version within its own
+             distance from the witness; the model's own call (bf16 r, k,
+             v views of (B,S,H,hd) tensors) through `ops.wkv6_with_state`:
+             one launch, two allocations (y, state), y bit-equal to the
+             float32 kernel's rounded to bf16 and laid out (B,S,H,hd), the
+             state equal; the launch (a block per chunk of each (batch,
+             head)) printed; timed beside its plain version at the
+             training shape, float32 and the model's call on the host and
+             the device (`benchmarks/wkv6_bench.py` in a process of its
+             own: one device event per call, the kernel), each with its
+             bound; the autograd Function's backward timed there, its
+             gradients equal, bit for bit, whichever forward ran.
 13. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
              to 8 of its 32 layers, random weights from seed 0,
@@ -155,6 +167,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -250,6 +263,13 @@ WKV_SHAPES = (((2, 3, 128, 32), (16, 32, 64)), ((2, 2, 64, 16), (16,)),
 #: y and the state against the plain version and the sequential oracle,
 #: float32: this fraction of max |ref|
 WKV_TOL = 1e-5
+#: phase `wkv_parity`'s strong decays, logw = -exp(n + WKV_STRONG_SHIFT):
+#: sums of hundreds within a chunk, which overflow a whole-chunk
+#: factorisation of the decays; ((B, H, S, hd), chunk), the last the
+#: training shape
+WKV_STRONG_SHIFT = 2.0
+WKV_STRONG = (((2, 3, 128, 32), 64), ((2, 3, 128, 32), 16),
+              ((4, 40, 2048, 64), 64))
 #: the training config and run of phase `train_rwkv`: rwkv6-3b at full
 #: width (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) with its depth
 #: cut from 32 layers to 8 (full depth holds 36.9 GB of float32 params,
@@ -490,7 +510,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.benchmarks import decode_bench, smla_pipe_bench
+    from repro_torch.benchmarks import (decode_bench, smla_pipe_bench,
+                                        wkv6_bench)
     from repro_torch.kernels.smla_pipe import kernel as pipe_kernel
     from repro_torch.kernels.smla_pipe import ref as pipe_ref
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
@@ -1732,39 +1753,72 @@ def main() -> int:
 
     wkv_err = {"max_abs": 0.0, "max_rel": 0.0}
 
-    def wkv_inputs(gen, b, h, s, hd, dt=f32):
-        """r, k, v (B,H,S,hd) in `dt`; logw = -exp(n - 2) and u = 0.4 +
-        0.2 n, float32."""
+    def wkv_inputs(gen, b, h, s, hd, dt=f32, shift=-2.0):
+        """r, k, v (B,H,S,hd) in `dt`; logw = -exp(n + shift) (the
+        reference test's decays at -2) and u = 0.4 + 0.2 n, float32."""
         r, k, v = (randn(gen, (b, h, s, hd), dt) for _ in range(3))
-        logw = -torch.exp(randn(gen, (b, h, s, hd), f32) - 2.0)
+        logw = -torch.exp(randn(gen, (b, h, s, hd), f32) + shift)
         return r, k, v, logw, 0.4 + 0.2 * randn(gen, (h, hd), f32)
 
-    def wkv_check(got, want, tol, what):
+    def wkv_check(got, want, tol, what, record=True):
+        """Raise unless max |got - want| <= tol x max |want|; return that
+        fraction, and keep it in `wkv_err` when `record`."""
         scale = float(want.float().abs().max())
         err = max_abs(got, want)
         if got.shape != want.shape or not err <= tol * scale:
             raise RuntimeError(f"{what}: {tuple(got.shape)}, max abs error "
                                f"{err} > {tol} x {scale}")
-        wkv_err["max_abs"] = max(wkv_err["max_abs"], err)
-        wkv_err["max_rel"] = max(wkv_err["max_rel"], err / scale)
+        if record:
+            wkv_err["max_abs"] = max(wkv_err["max_abs"], err)
+            wkv_err["max_rel"] = max(wkv_err["max_rel"], err / scale)
+        return err / scale
 
-    def wkv_work(b, h, s, hd, cs):
-        """(bytes, float32 operations, exps) WKV6 must move and do from a
-        zero state, counted from `csrc/wkv6.cu`'s arithmetic: r, k, v, logw
-        and u read once, y and the state written once; per chunk the j < i
-        score pairs (sub, two mul, add and one exp per channel; y's
-        intra-chunk mul-add), the inter-chunk y and the state update (2 x
-        cs x hd^2 each), the state's decay (hd^2 mul, hd exp); per element
-        cumsum and texc (2), the bonus (5), the y sum (1), r's decay (1 +
-        exp), k's (2 + exp)."""
+    def wkv_work(b, h, s, hd, cs, itemsize=4):
+        """(bytes, float32 FLOP of the tensor-core products, other float32
+        operations, exps) WKV6 must move and do from a zero state, counted
+        from `csrc/wkv6.cu`'s arithmetic: r, k, v and y (`itemsize` bytes
+        each), logw and u read or written once, and the float32 state;
+        per chunk of nsb = cs / 16 sub-blocks, the products (the
+        off-diagonal score blocks, scores v over each row block's columns
+        j < its end, the state's increment and the inter-chunk term, 2
+        FLOP a multiply-add), in each diagonal block per channel the six
+        4 x 4 micro-tiles below its diagonal (7 exps, 7 subs, 7 scaling
+        muls and 16 multiply-adds each) and the four on it (6 pairs of
+        sub, exp, two muls and an add each), the state step (2 hd^2); per
+        element the 16-row sum, r's and k's scalings (3) and their exps
+        (2), the bonus (3), y's sums (3) and the operands' factors (2);
+        per chunk and channel the factors' exps (2 nsb + pairs + 1)."""
         n_el = b * h * s * hd
         chunks = b * h * (s // cs)
-        pairs = cs * (cs - 1) // 2
-        n_bytes = 4 * (5 * n_el + h * hd + b * h * hd * hd)
-        ops = (chunks * (6 * pairs * hd + 4 * cs * hd * hd + hd * hd)
-               + 11 * n_el)
-        exps = chunks * (pairs * hd + hd) + 2 * n_el
-        return n_bytes, float(ops), float(exps)
+        nsb = cs // 16
+        pairs = nsb * (nsb - 1) // 2
+        n_bytes = ((4 * itemsize + 4) * n_el + 4 * h * hd
+                   + 4 * b * h * hd * hd)
+        macs = (pairs * 256 * hd + 256 * hd * nsb * (nsb + 1) // 2
+                + 2 * cs * hd * hd)
+        tc_flop = 2.0 * macs * chunks
+        diag_ops = nsb * hd * (6 * (7 + 7 + 7 + 2 * 16) + 4 * 6 * 5)
+        ops = chunks * (diag_ops + 2 * hd * hd) + 12 * n_el
+        exps = (chunks * nsb * hd * (6 * 7 + 4 * 6)
+                + chunks * (2 * nsb + pairs + 1) * hd + 2 * n_el)
+        return n_bytes, tc_flop, float(ops), float(exps)
+
+    def wkv_bound(b, h, s, hd, cs, itemsize=4):
+        """The bound of `wkv_work`: the bytes at the HBM rate; the
+        products at three TF32 passes on the tensor cores, the other
+        operations on the FMA pipe and the exps on the SFUs, each pipe on
+        its own."""
+        n_bytes, tc_flop, ops, exps = wkv_work(b, h, s, hd, cs, itemsize)
+        ms = {"bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
+              "tf32_ms": 3 * tc_flop / PEAK_TF32_FLOPS * 1e3,
+              "fma_ms": ops / PEAK_OPS_S * 1e3,
+              "sfu_ms": exps / PEAK_SFU_S * 1e3}
+        t_ops = max(ms["tf32_ms"], ms["fma_ms"], ms["sfu_ms"])
+        return {"bound_ms": max(ms["bytes_ms"], t_ops),
+                "bound_by": ("bytes" if ms["bytes_ms"] >= t_ops
+                             else "operations"),
+                "bytes": n_bytes, "tc_flop": tc_flop, "flop": ops,
+                "exp": exps, **ms}
 
     @phase("wkv_parity")
     def wkv_parity():
@@ -1784,10 +1838,48 @@ def main() -> int:
                                         ("state vs sequential", st, sst)):
                     wkv_check(got, want, WKV_TOL, f"{what} {name}")
                 n += 1
-        # the training shape with bf16 r, k, v, as the model passes them:
-        # the kernel on their float32 casts (as `ops` launches it) against
-        # the plain version at WKV_TOL; `ops`'s y is that y rounded to
-        # bf16, its state that state, exactly
+        # strong decays: finite, and within WKV_TOL of the sequential
+        # oracle and of a float64 witness (the sequential path in
+        # float64).  The plain version's exponents are differences of
+        # sums of hundreds here, so it is itself off the witness by more
+        # than WKV_TOL (on the CPU 1.4e-5-3.5e-5 of max |y| at chunk 64):
+        # against it the kernel is held to WKV_TOL plus that distance,
+        # which is what WKV_TOL of the witness implies
+        strong = []
+        for (b, h, s, hd), chunk in WKV_STRONG:
+            r, k, v, logw, u = wkv_inputs(gen, b, h, s, hd,
+                                          shift=WKV_STRONG_SHIFT)
+            y, st = wkv_kernel.wkv6(r, k, v, logw, u, chunk=chunk)
+            what = f"wkv6 strong decays {(b, h, s, hd)} chunk {chunk}"
+            if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+                raise RuntimeError(f"{what}: inf or NaN")
+            py, pst = wkv_ops.plain(r, k, v, logw, u, chunk)
+            sst, sy = wkv_ref.wkv(r, k, v, logw, u, torch.zeros(
+                (b, h, hd, hd), device=dev))
+            wst, wy = wkv_ref.wkv(
+                *(a.double() for a in (r, k, v, logw, u)),
+                torch.zeros((b, h, hd, hd), device=dev, dtype=torch.float64))
+            row = {"shape": [b, h, s, hd], "chunk": chunk,
+                   "mean_chunk_logw_sum": float(
+                       logw.unflatten(2, (-1, chunk)).sum(3).mean())}
+            for name, got, plain, seq, witness in (("y", y, py, sy, wy),
+                                                   ("state", st, pst, sst,
+                                                    wst)):
+                wkv_check(got, seq, WKV_TOL, f"{what} {name} vs sequential")
+                row[f"{name}_kernel_vs_f64"] = wkv_check(
+                    got, witness, WKV_TOL, f"{what} {name} vs float64")
+                off = max_abs(plain, witness) / float(witness.abs().max())
+                row[f"{name}_plain_vs_f64"] = off
+                row[f"{name}_kernel_vs_plain"] = wkv_check(
+                    got, plain, WKV_TOL + off, f"{what} {name} vs plain",
+                    record=False)
+            strong.append(row)
+            n += 1
+        del r, k, v, logw, u, y, st, py, pst, sy, sst, wy, wst
+        # the training shape with bf16 r, k, v: the kernel on their
+        # float32 casts against the plain version at WKV_TOL; `ops`'s y on
+        # the bf16 tensors is that y rounded to bf16, its state that
+        # state, exactly
         b, h, s, hd = WKV_SHAPES[-1][0]
         r, k, v, logw, u = wkv_inputs(gen, b, h, s, hd, bf16)
         f = [wkv_ops._f32(a) for a in (r, k, v, logw, u)]
@@ -1800,17 +1892,83 @@ def main() -> int:
                 or not torch.equal(y16, y32.to(bf16))):
             raise RuntimeError("wkv6: ops.wkv6_with_state on bf16 inputs")
         n += 1
+        # the model's own call (`wkv6_bench.inputs`): bf16 r, k, v and
+        # float32 logw as (B,H,S,hd) views of (B,S,H,hd) tensors; one call
+        # of `ops` launches the kernel once and allocates y and the state
+        # only; y, a view of a (B,S,H,hd) buffer, is the float32 kernel's
+        # y on the same values rounded to bf16, the state equal
+        if wkv6_bench.TRAINING != (b, h, s, hd, 64):
+            raise RuntimeError("wkv6_bench.TRAINING is not the training "
+                               "shape of WKV_SHAPES")
+        r, k, v, logw, u = wkv6_bench.inputs(b, h, s, hd)
+        f = [a.float().contiguous() for a in (r, k, v, logw)] + [u]
+        y32, st32 = wkv_kernel.wkv6(*f, chunk=64)
+        py, pst = wkv_ops.plain(*f, 64)
+        wkv_check(y32, py, WKV_TOL, "wkv6 model call's values y")
+        wkv_check(st32, pst, WKV_TOL, "wkv6 model call's values state")
+        del py, pst
+        torch.cuda.synchronize()
+        launches0 = wkv_kernel.wkv6.launches
+        allocs0 = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        y16, st16 = wkv_ops.wkv6_with_state(r, k, v, logw, u, 64)
+        allocs = (torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+                  - allocs0)
+        launched = wkv_kernel.wkv6.launches - launches0
+        if launched != 1 or allocs != 2:
+            raise RuntimeError(f"wkv6: one model call launched {launched} "
+                               f"kernels and made {allocs} allocations, "
+                               f"want 1 and 2 (y, state)")
+        if (y16.dtype != bf16 or y16.shape != r.shape
+                or not y16.transpose(1, 2).is_contiguous()
+                or not torch.equal(y16, y32.to(bf16))
+                or not torch.equal(st16, st32)):
+            raise RuntimeError("wkv6: the model call's y is not the float32 "
+                               "kernel's rounded to bf16 in (B,S,H,hd), or "
+                               "its state differs")
+        n += 1
+        plan = wkv_kernel.plan(b, h, s, hd, 64)
+        del r, k, v, logw, u, f, y32, st32, y16, st16
 
-        # times at the training shape, float32 as the kernel takes it
-        t = {"ms": cuda_ms(lambda: wkv_kernel.wkv6(*f, chunk=64), reps=5,
-                           calls=5)[0],
-             "plain_ms": cuda_ms(lambda: wkv_ops.plain(*f, 64), reps=3,
-                                 calls=1)[0],
-             "library_ms": None}
-        # the Function's backward at the training shape with the model's
-        # bf16 r, k, v: no kernel, the recompute through the chunked path;
-        # its gradients for one dy must not depend on which forward ran
-        xs = [a.detach().requires_grad_() for a in (r, k, v, logw, u)]
+        # times at the training shape: float32 contiguous, and the model's
+        # call on the host and the device (`wkv6_bench`), whose device
+        # events per call must be the one kernel
+        r, k, v, logw, u = f32_args = wkv_inputs(gen, b, h, s, hd)
+        t = {"ms": cuda_ms(lambda: wkv_kernel.wkv6(*f32_args, chunk=64),
+                           reps=5, calls=5)[0],
+             "plain_ms": cuda_ms(lambda: wkv_ops.plain(*f32_args, 64),
+                                 reps=3, calls=1)[0],
+             "library_ms": None, "plan": plan}
+        # (a process of its own: this one's earlier profiler windows can
+        # make a new one lose device events)
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "src" / "repro_torch" / "benchmarks"
+                                 / "wkv6_bench.py")],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"wkv6_bench failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        bench = json.loads(proc.stdout.strip().splitlines()[-1])["wkv6_bench"]
+        if bench["plan"] != plan:
+            raise RuntimeError(f"wkv6_bench's launch {bench['plan']}, want "
+                               f"{plan}")
+        kernels = bench["model_call_device_kernels"]
+        if bench["model_call_device_ms"] and (
+                bench["model_call_device_events"] != 1
+                or any("wkv6_kernel" not in name for name in kernels)):
+            raise RuntimeError(f"wkv6: the model call runs "
+                               f"{bench['model_call_device_events']} device "
+                               f"events per call ({kernels}), want 1, the "
+                               f"kernel")
+        t.update({key: bench[key] for key in (
+            "model_call_ms", "model_call_device_ms",
+            "model_call_device_events", "model_call_device_kernels",
+            "float32_ms", "float32_device_ms")})
+        # the Function's backward at the training shape with bf16 r, k, v:
+        # no kernel, the recompute through the chunked path; its gradients
+        # for one dy must not depend on which forward ran
+        xs = [a.detach().requires_grad_()
+              for a in (r.bfloat16(), k.bfloat16(), v.bfloat16(), logw, u)]
         y = wkv_ops.wkv6(*xs, 64)
         dy = randn(gen, tuple(y.shape), bf16)
         t["function_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -1826,24 +1984,27 @@ def main() -> int:
             raise RuntimeError("wkv6: the Function's gradients depend on "
                                "which forward ran")
         del xs, y, dy, g_kernel, g_plain
-        # the bound: the bytes, the float32 operations on the FMA pipe and
-        # the exps on the special-function units, each pipe on its own
-        n_bytes, ops, exps = wkv_work(b, h, s, hd, 64)
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        t_ops = max(ops / PEAK_OPS_S, exps / PEAK_SFU_S) * 1e3
-        t.update(bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 bytes=n_bytes, flop=ops, exp=exps, bytes_ms=t_bytes,
-                 fma_ms=ops / PEAK_OPS_S * 1e3,
-                 sfu_ms=exps / PEAK_SFU_S * 1e3,
+        # the bounds of both calls (`wkv_work`): float32, and the model's
+        # bf16 r, k, v and y
+        t.update(wkv_bound(b, h, s, hd, 64))
+        model = wkv_bound(b, h, s, hd, 64, itemsize=2)
+        t.update(model_call_bound_ms=model["bound_ms"],
+                 model_call_bound_by=model["bound_by"],
+                 model_call_bytes=model["bytes"], strong=strong,
                  max_rel_err=wkv_err["max_rel"], card=smi)
         print(json.dumps({"wkv_parity": t}), flush=True)
         return t, (f"{n} kernel checks passed (max abs err "
                    f"{wkv_err['max_abs']}, relative {wkv_err['max_rel']}); "
-                   f"{t['ms']:.4f} ms per call at {(b, h, s, hd)} chunk 64 "
-                   f"(plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
-                   f"by {t['bound_by']}); the Function's backward "
-                   f"{t['function_bwd_ms']:.1f} ms")
+                   f"{plan['blocks']} blocks ({plan['blocks_per_head']} "
+                   f"chunks of each (batch, head) at once); "
+                   f"{t['ms']:.4f} ms per call at "
+                   f"{(b, h, s, hd)} chunk 64 float32 (plain "
+                   f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} by "
+                   f"{t['bound_by']}); the model's bf16 call "
+                   f"{t['model_call_ms']:.4f} ms host, "
+                   f"{t['model_call_device_ms']:.4f} ms device (bound "
+                   f"{t['model_call_bound_ms']:.4f}); the Function's "
+                   f"backward {t['function_bwd_ms']:.1f} ms")
 
     @phase("train_rwkv")
     def train_rwkv():
@@ -2143,8 +2304,12 @@ def main() -> int:
             "launches": rwkv_stats["launches"],
             "max_abs_err": wkv_err["max_abs"],
             **{k: wkv[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "max_rel_err")},
-            "shape": "r/k/v/logw (4,40,2048,64) float32, chunk 64",
+                                   "bound_ms", "bound_by", "max_rel_err",
+                                   "plan", "model_call_ms",
+                                   "model_call_device_ms",
+                                   "model_call_bound_ms")},
+            "shape": "r/k/v/logw (4,40,2048,64) float32, chunk 64; the "
+                     "model call bf16 r/k/v views of (4,2048,40,64)",
             "check": "ok"}]}
         print(json.dumps(line), flush=True)
         return None, f"{len(line['kernels'])} kernels, all checks passed"

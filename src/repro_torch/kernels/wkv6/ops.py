@@ -42,16 +42,17 @@ def plain(r, k, v, logw, u, chunk: int = 64, *, remat_chunks: bool = False):
 
 
 def wkv6_with_state(r, k, v, logw, u, chunk: int = 64):
-    """Forward returning (y in r's dtype, final state float32); inputs
-    are cast to float32 first, as the reference's."""
+    """Forward returning (y in r's dtype, final state float32), in float32
+    arithmetic, as the reference's.  On the card the kernel reads the
+    tensors as they are (`kernel.check_layout`: bf16 or float32 r, k, v,
+    float32 logw and u, any strides with a unit hd axis) and is the one
+    launch; on the CPU they are cast to float32 for the plain version."""
     if r.device.type not in ("cuda", "cpu"):
         raise ValueError(f"wkv6: unsupported device {r.device}")
     chunk = min(chunk, r.shape[2])
-    args = [_f32(a) for a in (r, k, v, logw, u)]
     if r.device.type == "cuda":
-        y, state = K.wkv6(*args, chunk=chunk)
-    else:
-        y, state = plain(*args, chunk)
+        return K.wkv6(r, k, v, logw, u, chunk=chunk)
+    y, state = plain(*(_f32(a) for a in (r, k, v, logw, u)), chunk)
     return y.to(r.dtype), state
 
 
