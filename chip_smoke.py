@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the SMLA system (``src/repro_torch``)
 on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
-the serving path whose captured traffic feeds it, the training path, the
-paper's Cascaded-IO datapath matmul and its benchmark, and RWKV-6
-training.
+the paper's tables and figures, the serving path whose captured traffic
+feeds it, the training path, the paper's Cascaded-IO datapath matmul and
+its benchmark, and RWKV-6 training.
 
     python3 chip_smoke.py
 
@@ -77,7 +77,20 @@ and the script exits non-zero):
              bucketed plan timed and held equal for the record), and one
              class x both organisations at n_req 120 held against the
              plain engine on the card.
-9. attn_bwd_parity  the flash-attention backward kernel against its
+9. figures   the paper's outputs through the port
+             (``repro_torch.benchmarks``): Tables 1-2, Figs. 11-14,
+             fig_policy, fig_ooo and fig_refresh, each module's ``run()``
+             at its default (full) size on the kernel, SMLA_SMOKE unset,
+             BENCH_JSON in a temporary directory; every cell, printed data
+             row and JSON `extra` held against the reference's own
+             full-size run (``tests/torch_golden/paper_figs.json``: ints
+             exact, floats rtol=1e-6); launch counter reset before each
+             module and read after: one launch per shape group (Fig. 12
+             one more, its cross-check `simulate`); Fig. 11's plain pass
+             (the plain version on the CPU) on one probe cell; each
+             module's cells, launches, wall, kernel ms (each launch timed
+             alone once more, its result the same) and cells/s.
+10. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
              a ragged S 200, bf16 and float32, causal and full (dq, dk,
@@ -89,7 +102,7 @@ and the script exits non-zero):
              version and the backward of SDPA, and the forward at the
              same shape beside SDPA's forward (yardsticks; the port never
              calls SDPA).
-10. train    the training path at full width: tinyllama-1.1b (bf16
+11. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
              tokens, 6 steps through `launch/train.py`'s functions
@@ -105,7 +118,7 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-11. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+12. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
              a staging kernel, the product kernel, and for Dedicated-IO L
              product launches + a sum kernel) against its plain versions
              and `matmul_striped`: the reference test's grid in float32
@@ -117,7 +130,7 @@ and the script exits non-zero):
              realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
              staging and the sum bit for bit against their plain versions,
              and every kernel's plain version timed.
-12. wkv_parity  the WKV6 kernel against its plain version (the chunked
+13. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
@@ -136,7 +149,7 @@ and the script exits non-zero):
              own: one device event per call, the kernel), each with its
              bound; the autograd Function's backward timed there, its
              gradients equal, bit for bit, whichever forward ran.
-13. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+14. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
              to 8 of its 32 layers, random weights from seed 0,
              `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
@@ -151,7 +164,7 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-14. kernels  one JSON line: each kernel with its launches on its main
+15. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -186,6 +199,34 @@ GOLDEN_INT = ("n_act", "n_row_conflicts", "n_wr", "bus_cycles",
 GOLDEN_FLOAT = ("bandwidth_gbps", "bus_util", "pd_frac", "sr_frac",
                 "makespan_ns", "horizon_ns")
 RTOL = 1e-6
+#: the reference's own full-size run of the paper's outputs
+#: (``tests/torch_golden/make_paper_figs.py``)
+GOLDEN_FIGS = ROOT / "tests" / "torch_golden" / "paper_figs.json"
+#: golden section -> (port module of ``repro_torch.benchmarks``, its
+#: ``run()`` keywords): every module at its default (the golden's) size;
+#: Fig. 11's plain pass on the CPU takes one probe cell, a memory-bound
+#: one of short makespan (5478 cycles), where the reference's default
+#: (its first 25 cells, arrival-bound ones up to 193k cycles) would take
+#: the plain version many minutes
+FIGURES = {"table1": ("paper_table1", {}), "table2": ("paper_table2", {}),
+           "fig11": ("paper_fig11",
+                     {"plain_cells": ["L4/cascaded_mlr/stream.3"]}),
+           "fig12": ("paper_fig12", {}), "fig13": ("paper_fig13", {}),
+           "fig14": ("paper_fig14", {}),
+           "fig_policy": ("paper_fig_policy", {}),
+           "fig_ooo": ("paper_fig_ooo", {}),
+           "fig_refresh": ("paper_fig_refresh", {})}
+#: kernel launches a figure makes beyond one per shape group of its
+#: sweeps: Fig. 12's cross-check `engine.simulate` of one cell
+FIGURE_EXTRA_LAUNCHES = {"fig12": 1}
+#: printed rows that carry times or launch counts, not results
+TIMING_ROWS = ("# sweep:", "# pallas", "# plain")
+#: keys of a figure's JSON section that are its record, not its `extra`,
+#: or that count compiles/launches or carry timings
+NOT_EXTRA = ("backend", "horizon", "n_cells", "compiles", "launches",
+             "wall_s", "perf", "chunk_widths", "cell_names", "scalars",
+             "smoke", "compiles_per_window", "launches_per_window",
+             "cells_per_s_main")
 
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
 #: the float32 rate outside the tensor cores, the rate the kernel's scalar
@@ -349,6 +390,38 @@ def compare(got: dict, want: dict, what: str, skip=()) -> float:
             raise RuntimeError(f"{what}: {k} differs, max abs "
                                f"{float(diff.max())}")
     return worst
+
+
+def as_json(a):
+    """A metric as the golden file holds it: ints as ints, floats as
+    floats, arrays as lists."""
+    import numpy as np
+    a = np.asarray(a)
+    if a.ndim:
+        return [as_json(x) for x in a]
+    return int(a) if a.dtype.kind in "biu" else float(a)
+
+
+def same_numbers(got, want, where: str) -> None:
+    """Ints, bools and strings exact, floats to RTOL, containers element
+    by element; raises naming `where`."""
+    import numpy as np
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise RuntimeError(f"{where}: keys {sorted(set(got) ^ set(want))}")
+        for k in want:
+            same_numbers(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise RuntimeError(f"{where}: {len(got)} != {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_numbers(g, w, f"{where}[{i}]")
+    elif isinstance(want, float):
+        if not (isinstance(got, float)
+                and np.isclose(got, want, rtol=RTOL, atol=0.0)):
+            raise RuntimeError(f"{where}: {got!r} != {want!r}")
+    elif got != want or type(got) is not type(want):
+        raise RuntimeError(f"{where}: {got!r} != {want!r}")
 
 
 def stacked(cells, device, r_max=None):
@@ -611,10 +684,6 @@ def main() -> int:
         return cuda_ms(lambda: kern(p_b, t_b, horizon=horizon, core=core,
                                     banks=bkt.banks, chunk=bkt.chunk))
 
-    def shape_groups(spec):
-        return len({id(b.group)
-                    for b in sweep._plan(spec, sweep._sweep_cells(spec))})
-
     def timed_groups(spec):
         """The main path's dispatch — one launch per shape group, each
         cell with its bucket's chunk width — each launch timed alone (CUDA
@@ -711,7 +780,7 @@ def main() -> int:
         horizon = default_horizon(cells)
         spec = sweep.SweepSpec(tuple(cells),
                                engine.SimOptions(horizon=horizon))
-        groups = shape_groups(spec)
+        groups = sweep.shape_groups(spec)
         torch.cuda.synchronize()
         kern.launches = 0
         t0 = time.perf_counter()
@@ -1364,7 +1433,7 @@ def main() -> int:
         spec = sweep.SweepSpec(tuple(cells),
                                engine.SimOptions(horizon=horizon),
                                policies=presets)
-        groups = shape_groups(spec)
+        groups = sweep.shape_groups(spec)
         torch.cuda.synchronize()
         kern.launches = 0
         t0 = time.perf_counter()
@@ -1413,6 +1482,137 @@ def main() -> int:
                     f"{st['us_per_cycle']:.4f} us per cycle of the slowest "
                     f"cell; kernel == plain on {len(small)} cells at n_req "
                     f"120")
+
+    def sweep_json(spec, res):
+        """A port sweep as the golden file holds one."""
+        return {"horizon": int(spec.options.horizon),
+                "n_req": max(int(c.traces["inst"].shape[1])
+                             for c in spec.cells),
+                "window": int(spec.core.window), "names": list(res.names),
+                "chunks": [int(c) for c in res.chunks],
+                "cells": {n: cell_json(res[n]) for n in res.names}}
+
+    def cell_json(m):
+        return {**{k: as_json(m[k]) for k in sweep.SCALAR_METRICS},
+                "served": as_json(m["served"]), "ipc": as_json(m["ipc"])}
+
+    def run_figure(section, gold):
+        """One module of `FIGURES` through its ``run()`` on the card,
+        every `run_sweep` recorded; held against its golden section."""
+        import importlib
+        mod_name, kw = FIGURES[section]
+        mod = importlib.import_module(f"repro_torch.benchmarks.{mod_name}")
+        runs, orig = [], sweep.run_sweep
+
+        def recorded(spec):
+            t0 = time.perf_counter()
+            res = orig(spec)
+            runs.append((spec, res, time.perf_counter() - t0))
+            return res
+        sweep.run_sweep = recorded
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rows = mod.run(**kw)
+        finally:
+            sweep.run_sweep = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kern.launches
+        card = [(sp, r, dt) for sp, r, dt in runs if r.device == "cuda"]
+        groups = sum(sweep.shape_groups(sp) for sp, _, _ in card)
+        want = groups + FIGURE_EXTRA_LAUNCHES.get(section, 0)
+        if launches != want:
+            raise RuntimeError(f"figures {section}: {launches} launches, "
+                               f"want {want} ({groups} shape groups)")
+        data = [r for r in rows if not r.startswith(TIMING_ROWS)]
+        if data != [r for r in gold["rows"]
+                    if not r.startswith(TIMING_ROWS)]:
+            raise RuntimeError(f"figures {section}: printed rows differ")
+        if len(card) != len(gold["sweeps"]):
+            raise RuntimeError(f"figures {section}: {len(card)} card "
+                               f"sweeps, golden {len(gold['sweeps'])}")
+        for i, ((sp, r, _), w) in enumerate(zip(card, gold["sweeps"])):
+            same_numbers(sweep_json(sp, r), w, f"{section}.sweeps[{i}]")
+        # the other executor (Fig. 11's plain pass on the CPU)
+        golden_cells = {n: c for w in gold["sweeps"]
+                        for n, c in w["cells"].items()}
+        plain = [(sp, r, dt) for sp, r, dt in runs if r.device != "cuda"]
+        for _, r, _ in plain:
+            for n in r.names:
+                same_numbers(cell_json(r[n]), golden_cells[n],
+                             f"{section} plain {n}")
+        if "extra" in gold:
+            emitted = json.loads(pathlib.Path(
+                os.environ["BENCH_JSON"]).read_text())[section]
+            same_numbers({k: v for k, v in emitted.items()
+                          if k not in NOT_EXTRA},
+                         {k: v for k, v in gold["extra"].items()
+                          if k not in NOT_EXTRA}, f"{section}.extra")
+        # each launch timed alone (CUDA events), its result the main's;
+        # us per cycle of each sweep's slowest cell (chunks it ran)
+        timing = []
+        for sp, r, _ in card:
+            ms, again = timed_groups(sp)
+            same_sweep(again, r, f"{section} timed")
+            ran = max(int(r[n]["chunks_run"]) * ch
+                      for n, ch in zip(r.names, r.chunks))
+            timing.append({"window": sp.core.window, "launch_ms": ms,
+                           "slowest_cycles_run": ran,
+                           "us_per_cycle_run": sum(ms) * 1e3 / ran})
+        kernel_ms = sum(sum(t["launch_ms"]) for t in timing)
+        cells = sum(len(r.names) for _, r, _ in card)
+        sweep_s = sum(dt for _, _, dt in card)
+        return {"cells": cells, "launches": launches,
+                "shape_groups": groups, "wall_s": wall, "sweep_s": sweep_s,
+                "kernel_ms": kernel_ms, "timing": timing,
+                "cells_per_s": cells / sweep_s if card else None,
+                "plain_cells": sum(len(r.names) for _, r, _ in plain),
+                "plain_s": sum(dt for _, _, dt in plain),
+                # the plain pass's simulated cycles: its cells' makespans
+                "plain_cycles": sum(
+                    round(float(r[c.name]["makespan_ns"]) / c.stack.unit_ns)
+                    for sp, r, _ in plain for c in sp.cells),
+                "n_req": [w["n_req"] for w in gold["sweeps"]]}
+
+    @phase("figures")
+    def figures():
+        gold = json.loads(GOLDEN_FIGS.read_text())
+        saved = {k: os.environ.pop(k, None)
+                 for k in ("SMLA_SMOKE", "BENCH_JSON")}
+        per = {}
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for section in FIGURES:
+                    os.environ["BENCH_JSON"] = os.path.join(
+                        tmp, f"{section}.json")
+                    st = per[section] = run_figure(section, gold[section])
+                    rate = (f"{st['cells_per_s']:.1f} cells/s"
+                            if st["cells"] else "no cells")
+                    print(f"[figures] {section}: {st['cells']} cells, "
+                          f"{st['launches']} launch(es) ({st['shape_groups']}"
+                          f" shape groups), wall {st['wall_s']:.3f} s "
+                          f"(sweeps {st['sweep_s']:.3f} s), kernel "
+                          f"{st['kernel_ms']:.3f} ms, {rate} ({smi})",
+                          flush=True)
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        tot = {k: sum(st[k] for st in per.values())
+               for k in ("cells", "launches", "kernel_ms", "wall_s",
+                         "sweep_s", "plain_cells", "plain_s")}
+        out = {"per_figure": per, **tot, "card": smi}
+        print(json.dumps({"figures": out}), flush=True)
+        return out, (f"{len(per)} tables and figures equal the reference's "
+                     f"full-size run: {tot['cells']} cells on the kernel in "
+                     f"{tot['launches']} launches, kernel "
+                     f"{tot['kernel_ms']:.3f} ms, sweeps "
+                     f"{tot['sweep_s']:.3f} s, plain pass "
+                     f"{tot['plain_cells']} cell(s) in {tot['plain_s']:.2f} "
+                     f"s on the host ({smi})")
 
     def step_profile(step_fn, state, batch):
         """One train step under torch.profiler: its wall time (the
@@ -2202,6 +2402,7 @@ def main() -> int:
     attn = attn_parity()
     cap, serve_stats = serve()
     sim_stats = serve_sim(cap)
+    fig_stats = figures()
     bwd = attn_bwd_parity()
     train_stats = train()
     pipe = pipe_parity()
@@ -2214,7 +2415,9 @@ def main() -> int:
             "name": "smla_sim_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/smla_engine.cu",
             "replaces": "src/repro/core/smla/pallas_engine.py:96",
-            "launches": stats["launches"], "max_abs_err": worst_err[0],
+            "launches": (stats["launches"] + sim_stats["launches"]
+                         + fig_stats["launches"]),
+            "max_abs_err": worst_err[0],
             "ms": stats["compare_ms"], "plain_ms": stats["compare_plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": None,
@@ -2231,6 +2434,9 @@ def main() -> int:
             "serve_sim_kernel_ms": sim_stats["kernel_ms"],
             "serve_sim_bucketed_ms": sim_stats["bucketed_kernel_ms"],
             "serve_sim_us_per_cycle": sim_stats["us_per_cycle"],
+            "figures_launches": fig_stats["launches"],
+            "figures_cells": fig_stats["cells"],
+            "figures_kernel_ms": fig_stats["kernel_ms"],
             "check": "ok"}, {
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_fwd_tc.cu",

@@ -234,13 +234,17 @@ class _Bucket:
     chunk: int | None
 
 
+def _group_key(cell: SweepCell) -> tuple[int, int]:
+    """The static shape a cell's group shares: (cores, banks per rank)."""
+    return cell.traces["inst"].shape[0], cell.stack.banks_per_rank
+
+
 def _plan(spec: SweepSpec, cells: list[SweepCell]) -> list[_Bucket]:
     """The bucket schedule: shape groups -> makespan buckets -> chunk
     widths, in the reference's deterministic order."""
     order: dict[tuple, list[int]] = {}
     for i, cell in enumerate(cells):
-        key = (cell.traces["inst"].shape[0], cell.stack.banks_per_rank)
-        order.setdefault(key, []).append(i)
+        order.setdefault(_group_key(cell), []).append(i)
     opts = spec.options
     plan = []
     for (_, banks), idxs in order.items():
@@ -359,6 +363,12 @@ def _assemble(spec: SweepSpec, cells: list[SweepCell], plan: list[_Bucket],
     return SweepResult(names=[c.name for c in cells], cells=per_cell,
                        chunks=chunks, buckets=meta_all,
                        device=opts.torch_device().type)
+
+
+def shape_groups(spec: SweepSpec) -> int:
+    """The shape groups of `spec`'s cells (times its policies): the kernel
+    launches `run_sweep` makes on a CUDA device."""
+    return len({_group_key(c) for c in _sweep_cells(spec)})
 
 
 def run_sweep(spec: SweepSpec) -> SweepResult:
