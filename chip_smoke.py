@@ -79,7 +79,8 @@ and the script exits non-zero):
              plain engine on the card.
 9. figures   the paper's outputs through the port
              (``repro_torch.benchmarks``): Tables 1-2, Figs. 11-14,
-             fig_policy, fig_ooo and fig_refresh, each module's ``run()``
+             fig_policy, fig_ooo, fig_refresh and fig_fault (27 cells
+             under ``on_error="record"``), each module's ``run()``
              at its default (full) size on the kernel, SMLA_SMOKE unset,
              BENCH_JSON in a temporary directory; every cell, printed data
              row and JSON `extra` held against the reference's own
@@ -90,7 +91,29 @@ and the script exits non-zero):
              (the plain version on the CPU) on one probe cell; each
              module's cells, launches, wall, kernel ms (each launch timed
              alone once more, its result the same) and cells/s.
-10. attn_bwd_parity  the flash-attention backward kernel against its
+10. sweep_scale  the sweep engine's resilience and scaling on the card.
+             On Fig. 12's full-size grid (90 cells, three shape groups in
+             one sweep) through ``run_sweep`` (its card path with the
+             launcher injected where a launch must fail): a journaled
+             run whose second group's launch raises a non-transient
+             error ends
+             with exactly the first group's buckets journaled; the rerun
+             launches 2 times and equals the golden's Fig. 12 sweep;
+             ``on_error="record"`` with the same failed launch lists that
+             group's buckets in ``failed_buckets``, every other cell
+             equal to the golden, and the plain version never runs;
+             ``streaming=False`` equals ``streaming=True``.  Then
+             ``repro_torch.benchmarks.paper_fig_scale.main()`` at full
+             size (60, 240 and 960 cells; sync, stream_cold, stream_warm,
+             each a fresh process, the first two building the kernel with
+             nvcc into fresh directories; the 2e4-cell prune child): per
+             size every bandwidth and the checksum equal the golden's,
+             the promoted cells and ``prune_work`` too, one launch per
+             child (two for the prune child's sub-sweeps), and the
+             early-exit gate's fig_scale section passes (best ratio >=
+             1.3, saved >= 0.5); cells/s, buckets/s and nvcc seconds per
+             size and mode, the prune child's wall.
+11. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
              a ragged S 200, bf16 and float32, causal and full (dq, dk,
@@ -102,7 +125,7 @@ and the script exits non-zero):
              version and the backward of SDPA, and the forward at the
              same shape beside SDPA's forward (yardsticks; the port never
              calls SDPA).
-11. train    the training path at full width: tinyllama-1.1b (bf16
+12. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
              tokens, 6 steps through `launch/train.py`'s functions
@@ -118,7 +141,7 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-12. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+13. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
              a staging kernel, the product kernel, and for Dedicated-IO L
              product launches + a sum kernel) against its plain versions
              and `matmul_striped`: the reference test's grid in float32
@@ -130,7 +153,7 @@ and the script exits non-zero):
              realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
              staging and the sum bit for bit against their plain versions,
              and every kernel's plain version timed.
-13. wkv_parity  the WKV6 kernel against its plain version (the chunked
+14. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
@@ -149,7 +172,7 @@ and the script exits non-zero):
              own: one device event per call, the kernel), each with its
              bound; the autograd Function's backward timed there, its
              gradients equal, bit for bit, whichever forward ran.
-14. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+15. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
              to 8 of its 32 layers, random weights from seed 0,
              `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
@@ -164,7 +187,7 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-15. kernels  one JSON line: each kernel with its launches on its main
+16. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -215,7 +238,8 @@ FIGURES = {"table1": ("paper_table1", {}), "table2": ("paper_table2", {}),
            "fig14": ("paper_fig14", {}),
            "fig_policy": ("paper_fig_policy", {}),
            "fig_ooo": ("paper_fig_ooo", {}),
-           "fig_refresh": ("paper_fig_refresh", {})}
+           "fig_refresh": ("paper_fig_refresh", {}),
+           "fig_fault": ("paper_fig_fault", {})}
 #: kernel launches a figure makes beyond one per shape group of its
 #: sweeps: Fig. 12's cross-check `engine.simulate` of one cell
 FIGURE_EXTRA_LAUNCHES = {"fig12": 1}
@@ -678,7 +702,8 @@ def main() -> int:
     def launch_bucket(bkt, horizon, core):
         """One bucket of a sweep plan as one kernel launch, timed alone:
         (ms, metrics)."""
-        p_np, t_np = sweep._build_arrays(bkt)
+        p_np, t_np = sweep.stack_cells([bkt.group[j] for j in bkt.positions],
+                                       bkt.r_max, bkt.n_req_max)
         p_b, t_b = (engine._on_device(p_np, dev),
                     engine._on_device(t_np, dev))
         return cuda_ms(lambda: kern(p_b, t_b, horizon=horizon, core=core,
@@ -689,29 +714,30 @@ def main() -> int:
         cell with its bucket's chunk width — each launch timed alone (CUDA
         events): (ms per launch, the result as `run_sweep` assembles
         it)."""
-        cells = sweep._sweep_cells(spec)
-        plan = sweep._plan(spec, cells)
         times = []
 
         def launch(*a, **kw):
             ms, out = cuda_ms(lambda: kern(*a, **kw))
             times.append(ms)
             return out
-        return times, sweep._assemble(spec, cells, plan,
-                                      sweep._run_groups(spec, plan, launch))
+        return times, sweep._run(spec, launch)
 
     def timed_buckets(spec):
-        """The bucketed plan — one launch per makespan bucket, as before
-        the one launch per shape group — each launch timed alone: (ms per
+        """The bucketed plan — one launch per makespan bucket (the sweep's
+        unit on the CPU, through `engine.batched_simulate`), as before the
+        one launch per shape group — each launch timed alone: (ms per
         launch, the result as `run_sweep` assembles it)."""
-        cells = sweep._sweep_cells(spec)
-        plan = sweep._plan(spec, cells)
-        runs = [launch_bucket(bkt, spec.options.horizon, spec.core)
-                for bkt in plan]
-        outs = [{k: v.cpu().numpy() for k, v in out.items()}
-                for _, out in runs]
-        return [ms for ms, _ in runs], sweep._assemble(spec, cells, plan,
-                                                       outs)
+        times, real = [], engine.batched_simulate
+
+        def timed(*a, **kw):
+            ms, out = cuda_ms(lambda: real(*a, **kw))
+            times.append(ms)
+            return out
+        engine.batched_simulate = timed
+        try:
+            return times, sweep._run(spec, None)
+        finally:
+            engine.batched_simulate = real
 
     def same_sweep(got, want, what):
         """Two sweep results agree: names, chunk widths, the buckets'
@@ -836,7 +862,7 @@ def main() -> int:
         # the same grid as one launch at one chunk width (one bucket, no
         # makespan batching); its metrics must equal the main path's
         (one,) = sweep._plan(dataclasses.replace(
-            spec, makespan_batching=False), cells)
+            spec, makespan_batching=False), spec.options, cells, "cuda")
         one_ms, one_out = launch_bucket(one, horizon, core)
         compare({k: v.cpu() for k, v in one_out.items()},
                 {k: torch.from_numpy(np.stack([res[one.group[j].name][k]
@@ -1613,6 +1639,220 @@ def main() -> int:
                      f"{tot['sweep_s']:.3f} s, plain pass "
                      f"{tot['plain_cells']} cell(s) in {tot['plain_s']:.2f} "
                      f"s on the host ({smi})")
+
+    def poisoned(fail_on):
+        """The kernel's wrapper, except that its `fail_on`-th call raises
+        a non-transient error before launching (a failed launch); the
+        plain version counted alongside, which must never run."""
+        calls, plain, real_plain = [], [], engine._sim_core
+
+        def launch(*a, **kw):
+            calls.append(1)
+            if len(calls) == fail_on:
+                raise ValueError("injected failure of this shape group's "
+                                 "launch")
+            return kern(*a, **kw)
+
+        def plain_counted(*a, **kw):
+            plain.append(1)
+            return real_plain(*a, **kw)
+        return launch, plain, plain_counted
+
+    def run_poisoned(spec, launch, plain_counted):
+        """`run_sweep`'s card path (`sweep._run` with the kernel's
+        launcher) with `launch` as the launcher, the plain version counted
+        meanwhile."""
+        real_plain = engine._sim_core
+        engine._sim_core = plain_counted
+        try:
+            return sweep._run(spec, launch)
+        finally:
+            engine._sim_core = real_plain
+
+    def resilience(gold12):
+        """Journal, resume and on_error="record" on the card, on Fig. 12's
+        full-size grid (90 cells, three shape groups in one sweep)."""
+        from repro_torch.benchmarks import paper_fig12
+        spec, _ = paper_fig12.grid(gold12["extra"]["n_mixes"],
+                                   gold12["sweeps"][0]["n_req"])
+        want = gold12["sweeps"][0]
+        cells = sweep._sweep_cells(spec)
+        plan = sweep._plan(spec, spec.options, cells, "cuda")
+        groups = sweep._units(plan, per_group=True)
+        if len(groups) != 3 or spec.options.horizon != want["horizon"]:
+            raise RuntimeError("sweep_scale: Fig. 12's grid is not the "
+                               "golden's three shape groups")
+        second = [list(dict.fromkeys(b.group[j].name for j in b.positions))
+                  for b in groups[1]]
+        st, t_all = {"cells": len(cells)}, time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            jd = os.path.join(tmp, "journal")
+            spec_j = dataclasses.replace(spec, journal=jd)
+            launch, plain, plain_counted = poisoned(2)
+            kern.launches = 0
+            try:
+                run_poisoned(spec_j, launch, plain_counted)
+            except ValueError as exc:
+                if "injected failure" not in str(exc):
+                    raise
+            else:
+                raise RuntimeError("sweep_scale: the poisoned sweep did "
+                                   "not raise")
+            journaled = sorted(os.listdir(jd))
+            first = sweep._plan(spec_j, spec.options, cells, "cuda")
+            first = sorted(b.jkey + ".npz" for b in first
+                           if b.group is first[0].group)
+            if journaled != first or kern.launches != 1 or plain:
+                raise RuntimeError(
+                    f"sweep_scale: killed run journaled {len(journaled)} "
+                    f"files (want the first group's {len(first)}), "
+                    f"{kern.launches} launches, {len(plain)} plain runs")
+            st["journaled_buckets"] = len(journaled)
+            kern.launches = 0
+            t0 = time.perf_counter()
+            resumed = sweep.run_sweep(spec_j)
+            torch.cuda.synchronize()
+            st["resume_s"] = time.perf_counter() - t0
+            st["resume_launches"] = kern.launches
+            if kern.launches != 2 or resumed.dispatches != 2:
+                raise RuntimeError(f"sweep_scale: the resume launched "
+                                   f"{kern.launches} times (want 2)")
+            same_numbers(sweep_json(spec, resumed), want,
+                         "sweep_scale resumed fig12")
+        launch, plain, plain_counted = poisoned(2)
+        kern.launches = 0
+        rec = run_poisoned(dataclasses.replace(spec, on_error="record"),
+                           launch, plain_counted)
+        failed = [fb["cells"] for fb in rec.failed_buckets]
+        lost = {n for names in second for n in names}
+        if (failed != second or kern.launches != 2 or plain
+                or set(rec.names) != {c.name for c in cells} - lost
+                or any(fb["attempts"] != 1 for fb in rec.failed_buckets)):
+            raise RuntimeError(
+                f"sweep_scale: on_error='record' recorded {failed} "
+                f"(want the second group's {len(second)} buckets), "
+                f"{kern.launches} launches, {len(plain)} plain runs")
+        for name in rec.names:
+            same_numbers(cell_json(rec[name]), want["cells"][name],
+                         f"sweep_scale record {name}")
+        st.update(recorded_buckets=len(failed), recorded_cells=len(lost),
+                  record_launches=kern.launches)
+        kern.launches = 0
+        by_mode = {}
+        for streaming in (False, True):
+            t0 = time.perf_counter()
+            res = sweep.run_sweep(dataclasses.replace(spec,
+                                                      streaming=streaming))
+            by_mode[streaming] = (res, time.perf_counter() - t0)
+            same_numbers(sweep_json(spec, res), want,
+                         f"sweep_scale fig12 streaming={streaming}")
+        same_sweep(by_mode[False][0], by_mode[True][0],
+                   "sweep_scale sync vs streaming")
+        if kern.launches != 6:
+            raise RuntimeError(f"sweep_scale: sync + streaming launched "
+                               f"{kern.launches} times (want 3 + 3)")
+        st.update(sync_s=by_mode[False][1], streaming_s=by_mode[True][1],
+                  launches=1 + st["resume_launches"] + st["record_launches"]
+                  + kern.launches, wall_s=time.perf_counter() - t_all)
+        return st
+
+    def scale_figure(gold):
+        """`paper_fig_scale.main()` at full size on the card (fresh child
+        processes), held against the golden's sizes and prune child, and
+        the early-exit gate's fig_scale section on its record."""
+        from repro_torch.benchmarks import assert_early_exit, paper_fig_scale
+        with tempfile.TemporaryDirectory() as tmp:
+            bench = os.path.join(tmp, "fig_scale.json")
+            os.environ["BENCH_JSON"] = bench
+            t0 = time.perf_counter()
+            if paper_fig_scale.main(["--device", "cuda"]) != 0:
+                raise RuntimeError("sweep_scale: paper_fig_scale failed")
+            wall = time.perf_counter() - t0
+            rec = json.loads(pathlib.Path(bench).read_text())["fig_scale"]
+        for row in rec["rows"]:
+            g = gold["sizes"][str(row["k"])]
+            same_numbers({k: row[k] for k in ("n_cells", "n_buckets",
+                                              "names", "bandwidth_gbps",
+                                              "checksum_bandwidth")},
+                         {k: g[k] for k in ("n_cells", "n_buckets", "names",
+                                            "bandwidth_gbps",
+                                            "checksum_bandwidth")},
+                         f"sweep_scale fig_scale k={row['k']}")
+            for mode in ("sync", "stream_cold", "stream_warm"):
+                if row[mode]["launches"] != 1:
+                    raise RuntimeError(f"sweep_scale: {mode} k={row['k']} "
+                                       f"launched {row[mode]['launches']} "
+                                       f"times (want 1)")
+        pr, gp = rec["prune"], gold["prune"]
+        same_numbers({k: pr[k] for k in ("n_cells", "n_promoted",
+                                         "n_pruned", "promoted")},
+                     {k: gp[k] for k in ("n_cells", "n_promoted",
+                                         "n_pruned", "promoted")},
+                     "sweep_scale prune")
+        same_numbers({k: pr[k] for k in gp["prune_work"]}, gp["prune_work"],
+                     "sweep_scale prune_work")
+        if pr["launches"] != 2:
+            raise RuntimeError(f"sweep_scale: prune child launched "
+                               f"{pr['launches']} times (want 2 sub-sweeps)")
+        msg = assert_early_exit.check_fig_scale({"fig_scale": rec})
+        if msg:
+            raise RuntimeError(f"sweep_scale: {msg}")
+        launches = pr["launches"] + sum(
+            row[m]["launches"] for row in rec["rows"]
+            for m in ("sync", "stream_cold", "stream_warm"))
+        return {"wall_s": wall, "launches": launches,
+                "ratio_best": rec["ratio_best"],
+                "saved_frac": pr["saved_frac"], "prune_wall_s": pr["wall_s"],
+                "prune_build_s": pr["build_s"],
+                "rows": [{"k": r["k"], "n_cells": r["n_cells"],
+                          "n_buckets": r["n_buckets"], "ratio": r["ratio"],
+                          **{m: {k: r[m][k] for k in (
+                              "cells_per_s", "buckets_per_s", "build_s",
+                              "wall_s", "launches")}
+                             for m in ("sync", "stream_cold",
+                                       "stream_warm")}}
+                         for r in rec["rows"]]}
+
+    @phase("sweep_scale")
+    def sweep_scale():
+        gold = json.loads(GOLDEN_FIGS.read_text())
+        saved = {k: os.environ.pop(k, None)
+                 for k in ("SMLA_SMOKE", "BENCH_JSON")}
+        try:
+            res = resilience(gold["fig12"])
+            print(f"[sweep_scale] fig12 on the card: killed at the second "
+                  f"group's launch with {res['journaled_buckets']} buckets "
+                  f"journaled, resumed in {res['resume_launches']} launches "
+                  f"({res['resume_s']:.3f} s) equal to the golden; "
+                  f"on_error='record' isolated {res['recorded_buckets']} "
+                  f"buckets ({res['recorded_cells']} cells), the other "
+                  f"{res['cells'] - res['recorded_cells']} equal; sync "
+                  f"{res['sync_s']:.3f} s == streaming "
+                  f"{res['streaming_s']:.3f} s ({smi})", flush=True)
+            scale = scale_figure(gold["fig_scale"])
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        for r in scale["rows"]:
+            for m in ("sync", "stream_cold", "stream_warm"):
+                x = r[m]
+                print(f"[sweep_scale] fig_scale {r['n_cells']} cells "
+                      f"{m}: {x['cells_per_s']:.1f} cells/s, "
+                      f"{x['buckets_per_s']:.2f} buckets/s, nvcc "
+                      f"{x['build_s']:.2f} s, wall {x['wall_s']:.3f} s "
+                      f"({smi})", flush=True)
+        out = {"resilience": res, "fig_scale": scale,
+               "launches": res["launches"] + scale["launches"], "card": smi}
+        print(json.dumps({"sweep_scale": out}), flush=True)
+        return out, (f"journal, resume and record on Fig. 12's "
+                     f"{res['cells']} cells equal the golden; fig_scale "
+                     f"at full size equal the golden, best ratio "
+                     f"{scale['ratio_best']:.2f}x, prune saved "
+                     f"{scale['saved_frac']:.0%} of 2e4 cells' work in "
+                     f"{scale['prune_wall_s']:.2f} s; "
+                     f"{out['launches']} launches ({smi})")
 
     def step_profile(step_fn, state, batch):
         """One train step under torch.profiler: its wall time (the
@@ -2403,6 +2643,7 @@ def main() -> int:
     cap, serve_stats = serve()
     sim_stats = serve_sim(cap)
     fig_stats = figures()
+    scale_stats = sweep_scale()
     bwd = attn_bwd_parity()
     train_stats = train()
     pipe = pipe_parity()
@@ -2416,7 +2657,8 @@ def main() -> int:
             "source": "src/repro_torch/csrc/smla_engine.cu",
             "replaces": "src/repro/core/smla/pallas_engine.py:96",
             "launches": (stats["launches"] + sim_stats["launches"]
-                         + fig_stats["launches"]),
+                         + fig_stats["launches"]
+                         + scale_stats["launches"]),
             "max_abs_err": worst_err[0],
             "ms": stats["compare_ms"], "plain_ms": stats["compare_plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
@@ -2437,6 +2679,8 @@ def main() -> int:
             "figures_launches": fig_stats["launches"],
             "figures_cells": fig_stats["cells"],
             "figures_kernel_ms": fig_stats["kernel_ms"],
+            "sweep_scale_launches": scale_stats["launches"],
+            "fig_scale_ratio_best": scale_stats["fig_scale"]["ratio_best"],
             "check": "ok"}, {
             "name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_fwd_tc.cu",

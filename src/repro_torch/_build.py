@@ -27,16 +27,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
-def compile_library(compiler: str, flags, sources, name: str) -> pathlib.Path:
+def compile_library(compiler: str, flags, sources, name: str,
+                    build_dir=None) -> pathlib.Path:
     """Compile `sources` (names under ``csrc/``; the first non-header is
-    the translation unit) into ``BUILD_DIR/<name>-<hash>.so`` unless it
-    is already there.  The hash covers every source and the flags, so an
-    edited source rebuilds.  Raises ``RuntimeError`` with the compiler's
-    output on failure."""
+    the translation unit) into ``<build_dir>/<name>-<hash>.so`` unless it
+    is already there (`build_dir` defaults to `BUILD_DIR`).  The hash
+    covers every source and the flags, so an edited source rebuilds.
+    Raises ``RuntimeError`` with the compiler's output on failure."""
     h = hashlib.sha256(" ".join((compiler,) + tuple(flags)).encode())
     for s in sources:
         h.update((CSRC / s).read_bytes())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    out = (pathlib.Path(build_dir) if build_dir is not None
+           else BUILD_DIR) / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -28,6 +28,8 @@ BENCHES = [
     "repro_torch.benchmarks.paper_fig_policy",  # controller-policy sensitivity
     "repro_torch.benchmarks.paper_fig_ooo",     # OoO window depth x OooSelect
     "repro_torch.benchmarks.paper_fig_refresh", # refresh / deep power states
+    "repro_torch.benchmarks.paper_fig_fault",   # fault injection / degradation
+    "repro_torch.benchmarks.paper_fig_scale",   # sweep-engine scaling
     "repro_torch.benchmarks.smla_pipe_bench",   # SMLA pipeline kernel
 ]
 
@@ -39,8 +41,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="*", metavar="MOD",
                     help="run only these modules (suffix match)")
     ap.add_argument("--progress", action="store_true",
-                    help="stream each module's output as it runs instead "
-                         "of replaying it when the module ends")
+                    help="per-bucket sweep progress lines, streamed as "
+                         "each module runs (sets SMLA_PROGRESS=1; see "
+                         "_util.progress_printer)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="passed to every module (default: cuda)")
     args = ap.parse_args(argv)
@@ -48,6 +51,8 @@ def main(argv=None) -> int:
     env = dict(os.environ)
     if args.smoke:
         env["SMLA_SMOKE"] = "1"
+    if args.progress:
+        env["SMLA_PROGRESS"] = "1"
     # `-m repro_torch.benchmarks.X` from any cwd: src/ only
     src = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -64,8 +69,8 @@ def main(argv=None) -> int:
     for mod in benches:
         print(f"\n===== {mod} =====", flush=True)
         t0 = time.time()
-        # --progress streams the child; otherwise output is captured and
-        # replayed on completion
+        # --progress streams the child (per-bucket lines land live);
+        # otherwise output is captured and replayed on completion
         r = subprocess.run([sys.executable, "-m", mod, "--device",
                             args.device],
                            capture_output=not args.progress,

@@ -31,8 +31,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch._build import (bind, compile_library, nvcc, on_device,
-                                stream_ptr)
+from repro_torch._build import (BUILD_DIR, bind, compile_library, nvcc,
+                                on_device, stream_ptr)
 from repro_torch.core.smla import engine
 
 KERNEL_SOURCES = ("smla_cycle.cuh", "smla_engine.cu")
@@ -75,11 +75,17 @@ def load_library(path) -> ctypes.CDLL:
     return lib
 
 
+def build(build_dir=None) -> ctypes.CDLL:
+    """Build (first use in `build_dir` only; default
+    ``_build.BUILD_DIR``) and load the CUDA kernel library, once per
+    directory and process."""
+    return _build_in(str(BUILD_DIR if build_dir is None else build_dir))
+
+
 @functools.cache
-def build() -> ctypes.CDLL:
-    """Build (first use only) and load the CUDA kernel library."""
+def _build_in(build_dir: str) -> ctypes.CDLL:
     return load_library(compile_library(nvcc(), NVCC_FLAGS, KERNEL_SOURCES,
-                                        "smla_engine"))
+                                        "smla_engine", build_dir))
 
 
 # ----------------------------------------------------------------------------
@@ -222,12 +228,16 @@ def warps_per_block(n_cells: int, words: int, device: torch.device) -> int:
 
 
 def sim_cell_blocks(params: dict, traces: dict, *, horizon: int,
-                    core: engine.CoreParams, banks: int, chunk) -> dict:
+                    core: engine.CoreParams, banks: int, chunk,
+                    build_dir=None) -> dict:
     """Batched simulation (leading cell axis on every leaf), same contract
     as the reference's ``sim_cell_blocks``; `chunk` may also be a sequence
     of one width per cell (the sweep's one launch per shape group).  CPU
     tensors run the plain PyTorch version (one width only); CUDA tensors
-    run the kernel, and anything the kernel cannot take raises."""
+    run the kernel, built in `build_dir` (`build`), and anything the
+    kernel cannot take raises.  The launch is counted once the kernel is
+    enqueued without error: a call that fails before (a failed build, an
+    allocation out of memory, a launch error) counts nothing."""
     dev = traces["inst"].device
     if dev.type == "cpu":
         if not (chunk is None or isinstance(chunk, (int, np.integer))):
@@ -236,7 +246,7 @@ def sim_cell_blocks(params: dict, traces: dict, *, horizon: int,
         return engine._sim_core(params, traces, horizon, core, banks, chunk)
     if dev.type != "cuda":
         raise ValueError(f"sim_cell_blocks: unsupported device {dev}")
-    lib = build()
+    lib = build(build_dir)
     ctx = engine._prepare(params, traces, core, banks)
     p = pack(ctx, horizon, chunk)
     check_packed(p, dev)

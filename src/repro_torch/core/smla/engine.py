@@ -80,18 +80,29 @@ class SimOptions:
     device     where the simulation runs: ``"cuda"`` (default) runs the
                CUDA kernel (`cuda_engine.sim_cell_blocks`), ``"cpu"`` the
                plain PyTorch version.  ``"cuda"`` without a card raises.
+    compile_cache_dir
+               the directory the CUDA kernel's library is built into
+               (``nvcc``, keyed by a hash of its sources and flags) and
+               loaded from: a process that finds it built there skips the
+               build — the port's persistent counterpart of the
+               reference's compilation cache.  ``None`` (default) is
+               ``_build.BUILD_DIR``.  The plain version builds nothing.
+               Results are identical whichever directory.
 
-    The reference's ``backend``, ``interpret`` and ``compile_cache_dir``
-    have no counterpart: dispatch is by device, and PyTorch runs eagerly
-    with no compiled executables to cache (the kernel library is built
-    once and cached on disk by `cuda_engine`).
+    The reference's ``backend`` and ``interpret`` have no counterpart:
+    dispatch is by device.
     """
     horizon: int
     chunk: int | None | str = AUTO
     validate: bool = False
     device: str = "cuda"
+    compile_cache_dir: str | None = None
 
     def __post_init__(self):
+        if not (self.compile_cache_dir is None
+                or isinstance(self.compile_cache_dir, str)):
+            raise ValueError(f"compile_cache_dir="
+                             f"{self.compile_cache_dir!r}: want str or None")
         if not (self.chunk is None or self.chunk == AUTO
                 or isinstance(self.chunk, (int, np.integer))):
             raise ValueError(f"chunk={self.chunk!r}: want int, None or "
@@ -856,7 +867,7 @@ def run_batch(launch, params: dict, traces: dict, options: SimOptions,
     out = launch(_with_timing_defaults(_on_device(params, dev)),
                  _with_wr(_on_device(traces, dev)),
                  horizon=int(options.horizon), core=core, banks=banks,
-                 chunk=chunk)
+                 chunk=chunk, build_dir=options.compile_cache_dir)
     if options.validate:
         _validate_metrics(out)
     return out

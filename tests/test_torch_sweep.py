@@ -26,10 +26,7 @@ from torch_parity import (diff_metrics, host_launch,  # noqa: E402
 def _fused_sweep(spec, launch):
     """`run_sweep` as it runs on the card — one launch per shape group —
     with `launch` in place of the kernel."""
-    cells = port_sweep._sweep_cells(spec)
-    plan = port_sweep._plan(spec, cells)
-    return port_sweep._assemble(spec, cells, plan,
-                                port_sweep._run_groups(spec, plan, launch))
+    return port_sweep._run(spec, launch)
 
 
 def _compare(ref_cells, horizon, max_buckets, policies=None, launch=None):

@@ -6,8 +6,8 @@ script).
         python tests/torch_golden/make_paper_figs.py [SECTION ...]
 
 Each section is one module of ``benchmarks/``: Tables 1-2, Figs. 11-14,
-fig_policy, fig_ooo and fig_refresh.  The script calls the module's own
-``run()`` at its default (full) size, ``SMLA_SMOKE`` unset and
+fig_policy, fig_ooo, fig_refresh and fig_fault.  The script calls the
+module's own ``run()`` at its default (full) size, ``SMLA_SMOKE`` unset and
 ``BENCH_JSON`` pointed at a temporary file, and records every
 ``SweepResult`` by wrapping ``repro.core.smla.sweep.run_sweep`` for the
 duration of the call, so no grid is written twice.  Per sweep it keeps
@@ -22,6 +22,12 @@ which off-TPU is far too slow at full size: the wrapper answers that
 spec with the scan backend on the same cells (the reference asserts the
 two agree) and does not record it, so the golden holds the scan pass
 only.
+
+fig_scale is a timing figure whose sweeps run in child processes, so its
+section is built here instead (`make_fig_scale`): for each of the
+module's full sizes the reference's per-cell ``bandwidth_gbps`` and its
+checksum from one ``streaming=False`` sweep of the child's grid, and for
+its prune child the promoted cells and ``prune_work``.  No timings.
 
 Regenerate only when the reference changes (it is frozen while the port
 is built); naming sections rewrites only those.  Not collected by
@@ -56,7 +62,17 @@ SECTIONS = {
     "fig_policy": "benchmarks.paper_fig_policy",
     "fig_ooo": "benchmarks.paper_fig_ooo",
     "fig_refresh": "benchmarks.paper_fig_refresh",
+    "fig_fault": "benchmarks.paper_fig_fault",
+    "fig_scale": "benchmarks.paper_fig_scale",
 }
+
+#: fig_scale's grids, as the reference's child processes build them
+#: (``benchmarks/paper_fig_scale.py``'s ``_CHILD`` and ``_PRUNE_CHILD``)
+#: at its full size
+SCALE = {"n_req": 120, "horizon": 6_000, "layers": [2, 4],
+         "workload": ["stream.t", 50.0, 0.85, 1 / 3],
+         "prune": {"n_cells": 20_000, "n_req": 10, "horizon": 1_024,
+                   "horizon_frac": 0.125, "keep_frac": 0.5, "rounds": 1}}
 
 #: keys of an emitted BENCH section that are not the figure's ``extra``
 RECORD_KEYS = ("backend", "horizon", "n_cells", "compiles", "launches",
@@ -117,10 +133,57 @@ def extra_of(section: dict) -> dict:
     return {k: v for k, v in section.items() if k not in RECORD_KEYS}
 
 
+def make_fig_scale() -> dict:
+    """fig_scale's section: per full size the reference's sweep of the
+    child's grid with ``streaming=False`` (names, per-cell bandwidth,
+    checksum, buckets), and its prune child's promoted cells and
+    ``prune_work``."""
+    import repro.launch.compat  # noqa: F401  (jax API shims)
+    from benchmarks import paper_fig_scale
+    from repro.core.smla import sweep
+    from repro.core.smla.engine import SimOptions
+    from repro.core.smla.traces import WorkloadSpec
+    name, mpki, row_hit, wr = SCALE["workload"]
+    stream = WorkloadSpec(name, mpki, row_hit, write_frac=wr)
+    sizes = {}
+    for k in paper_fig_scale.SIZES_FULL:
+        cells = sweep.paper_grid(
+            [(f"w{s}", [stream, stream], s) for s in range(k)],
+            layers=tuple(SCALE["layers"]), n_req=SCALE["n_req"])
+        res = sweep.run_sweep(sweep.SweepSpec(
+            tuple(cells), options=SimOptions(horizon=SCALE["horizon"]),
+            streaming=False))
+        bw = res.scalars(keys=("bandwidth_gbps",))["bandwidth_gbps"]
+        sizes[str(k)] = {"n_cells": len(res.names),
+                         "n_buckets": len(res.buckets),
+                         "names": list(res.names),
+                         "bandwidth_gbps": [float(x) for x in bw],
+                         "checksum_bandwidth": float(bw.sum())}
+    pc = SCALE["prune"]
+    base = sweep.paper_grid([("s", [stream, stream], 3)], layers=(2,),
+                            n_req=pc["n_req"])[:4]
+    reps = -(-pc["n_cells"] // len(base))
+    cells = tuple(sweep.SweepCell(f"{c.name}#r{i}", c.stack, c.traces)
+                  for i in range(reps) for c in base)
+    res = sweep.run_sweep(sweep.SweepSpec(
+        cells, options=SimOptions(horizon=pc["horizon"]),
+        prune=sweep.PruneSpec(horizon_frac=pc["horizon_frac"],
+                              keep_frac=pc["keep_frac"],
+                              rounds=pc["rounds"])))
+    prune = {"n_cells": len(cells), "n_promoted": len(res.names),
+             "n_pruned": len(res.pruned), "promoted": list(res.names),
+             "prune_work": dict(res.prune_work)}
+    return {"module": SECTIONS["fig_scale"],
+            "config": {**SCALE, "sizes": list(paper_fig_scale.SIZES_FULL)},
+            "sizes": sizes, "prune": prune}
+
+
 def make_section(name: str) -> dict:
     """Run the reference's module for `name` at its default size and
     return its golden section."""
     import repro.launch.compat  # noqa: F401  (jax API shims)
+    if name == "fig_scale":
+        return make_fig_scale()
     from repro.core.smla import sweep as sweep_mod
     mod = importlib.import_module(SECTIONS[name])
     sweeps: list = []
@@ -175,9 +238,9 @@ def main(argv=None) -> int:
     for name in names:
         data[name] = make_section(name)
         write(data)
-        print(f"{name}: {len(data[name]['sweeps'])} sweep(s), "
-              f"{sum(len(s['names']) for s in data[name]['sweeps'])} cells",
-              flush=True)
+        sweeps = data[name].get("sweeps", [])
+        print(f"{name}: {len(sweeps)} sweep(s), "
+              f"{sum(len(s['names']) for s in sweeps)} cells", flush=True)
     return 0
 
 

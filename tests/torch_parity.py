@@ -38,8 +38,10 @@ def host_library():
 def host_launch(lib):
     """A launcher with `cuda_engine.sim_cell_blocks`'s signature that runs
     the wrapper's steps on CPU tensors, the host loop in place of the
-    launch; `chunk` may be one width per cell, as on the card."""
-    def launch(params, traces, *, horizon, core, banks, chunk):
+    launch; `chunk` may be one width per cell, as on the card (nothing is
+    built, so `build_dir` is not used)."""
+    def launch(params, traces, *, horizon, core, banks, chunk,
+               build_dir=None):
         ctx = port_engine._prepare(params, traces, core, banks)
         p = cuda_engine.pack(ctx, horizon, chunk)
         cuda_engine.check_packed(p, torch.device("cpu"))
@@ -142,3 +144,52 @@ def diff_batches(cells, got, want, skip=()):
         errors += diff_metrics(c.name, {k: v[i] for k, v in got.items()},
                                {k: v[i] for k, v in want.items()}, skip)
     return errors
+
+
+#: the grid of the reference's sweep-engine tests
+#: (tests/test_sweep_resilience.py, tests/test_sweep_streaming.py)
+SWEEP_HORIZON = 3_000
+SWEEP_N_REQ = 30
+
+
+def stream_cells(n_layers=(2, 4), n_cores=2, name="s"):
+    """Reference cells of those tests' grid: `n_cores` STREAM cores x 5 IO
+    models x `n_layers` (10 cells, one shape group, by default), named
+    ``L{layers}/{config}/{name}``."""
+    from repro.core.smla import sweep as ref_sweep
+    from repro.core.smla.traces import WorkloadSpec
+    w = WorkloadSpec("stream.t", 50.0, 0.85, write_frac=1 / 3)
+    return tuple(ref_sweep.paper_grid([(name, [w] * n_cores, 3)],
+                                      layers=n_layers, n_req=SWEEP_N_REQ))
+
+
+def port_spec(cells, horizon=SWEEP_HORIZON, **kw):
+    """The port's SweepSpec of reference `cells` on the CPU."""
+    opts = kw.pop("options", None) or port_engine.SimOptions(
+        horizon=horizon, device="cpu")
+    if kw.get("policies") is not None:
+        kw["policies"] = tuple(port_policy(p) for p in kw["policies"])
+    return port_sweep.SweepSpec(tuple(port_cell(c) for c in cells), opts,
+                                **kw)
+
+
+def assert_same_cells(got, want, skip=()):
+    """Two SweepResults (either package) hold the same cells in the same
+    order, every metric equal: same dtype, same values, bit for bit."""
+    assert got.names == want.names
+    for name, g, w in zip(got.names, got.cells, want.cells):
+        assert set(g) == set(w), name
+        for k in w:
+            if k in skip:
+                continue
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            assert a.dtype == b.dtype and np.array_equal(a, b), \
+                f"{name}:{k} {a.tolist()} != {b.tolist()}"
+
+
+def assert_same_buckets(got, want):
+    """The bucket metadata of two SweepResults agree entry for entry."""
+    keys = ("cells", "chunk", "est_cycles", "measured_cycles", "n_rows",
+            "chunks_run", "est_max", "measured_max")
+    assert [[b[k] for k in keys] for b in got.buckets] == \
+        [[b[k] for k in keys] for b in want.buckets]
