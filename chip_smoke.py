@@ -36,14 +36,17 @@ and the script exits non-zero):
              and so is the grid as one launch at one chunk width.
 6. attn_parity  the flash-attention and flash-decode kernels against
              their plain versions on the card: flash at (B 8, Hq 32,
-             Hkv 4, hd 64) and (B 2, Hq 16, Hkv 8, hd 128), S in {256,
-             192}, bf16 and float32, causal and full (`o` and `lse`);
+             Hkv 4, hd 64), (B 2, Hq 16, Hkv 8, hd 128) and the two new
+             families' shapes, (B 8, Hq 24, Hkv 8, hd 64) (granite-moe,
+             G 3) and (B 8, Hq 64, Hkv 8, hd 128) (qwen2-vl, G 8), S in
+             {256, 192}, bf16 and float32, causal and full (`o` and `lse`);
              the bf16 tensor-core kernel's edges at (B 2, Hq 8, Hkv 2):
              hd 16, 32, 64 and 128 x S in {1, 200, 2000} (and 192, 256
              at hd 16 and 32), causal and full; one call of each dtype
              with the route counts read, so float32 shows it still runs
-             the CUDA-core kernel (held at 1e-5); decode at Smax in
-             {512, 300} with mixed lengths, bf16, and finite garbage
+             the CUDA-core kernel (held at 1e-5); decode at the B-8
+             shapes above, Smax in {512, 300} with mixed lengths, bf16
+             and float32, and finite garbage
              past the lengths must change nothing; decode in bf16 (2^-7
              of max |o|) and float32 (1e-5), a lane of length 0 gives
              zeros, and the split-KV combine is bit-identical to
@@ -69,18 +72,45 @@ and the script exits non-zero):
              kernels' float32 builds against their plain versions,
              model-wide, logits within 1e-3.
 8. serve_sim the captured stream through the rest of the serve<->sim loop:
-             `StreamProfile.from_capture`, `mix_trace` for the three
-             traffic classes of ``benchmarks/paper_fig_serve.py`` x
-             cascaded MLR/SLR x POLICY_PRESETS (66 cells, n_req 600)
+             `StreamProfile.from_capture`, ``paper_fig_serve.grid``: its
+             three traffic classes x cascaded MLR/SLR x POLICY_PRESETS
+             (66 cells, n_req 600)
              through `run_sweep` on the kernel (one launch per shape
              group, counted; every cell must complete; timed, and the
              bucketed plan timed and held equal for the record), and one
              class x both organisations at n_req 120 held against the
              plain engine on the card.
-9. figures   the paper's outputs through the port
+9. serve_moe the MoE family at full width and depth: granite-moe-3b-a800m
+             (32 layers, d 1536, 24/8 heads of 64, 40 experts top-8 of
+             width 512, vocab 49155, bf16), random weights from a seed,
+             through `Engine` with attn_impl "pallas" as `serve` (8 x 256
+             prompt tokens + 64 greedy; flash 32, decode and its combine
+             32 x 63, exact); prefill ms, decode ms per step, tokens/s,
+             device-busy ms per step.  Held against the plain full
+             forward (no cache, attn_impl "chunked") on the generated
+             tokens: bf16 logits within max(5e-2, 1.5 x naive vs
+             chunked), the plain forwards taking the kernel path's
+             experts (`routed`), so bf16 noise cannot flip a route
+             between them; every decision where a plain path's own choice
+             differs is counted, must number at most 1.5 x the two plain
+             paths' own count (or FLIP_FRAC of the decisions), and must be
+             a near-tie (`near_ties`); the same forward left free to
+             route is reported.  float32 replay (the kernels' float32
+             builds, a float32 cache) with routing free: flips counted and
+             the first of each token a near-tie, logits within 1e-3 at
+             every position whose routing agreed in every layer (at least
+             half of them).
+10. serve_vlm the VLM family: qwen2-vl-72b at its published width cut to
+             4 of 80 layers, 8 x 256 + 16 greedy, prompts holding an image
+             block (`vlm_positions`: three distinct M-RoPE streams), held
+             as serve_moe holds (no router).
+11. figures  the paper's outputs through the port
              (``repro_torch.benchmarks``): Tables 1-2, Figs. 11-14,
-             fig_policy, fig_ooo, fig_refresh and fig_fault (27 cells
-             under ``on_error="record"``), each module's ``run()``
+             fig_policy, fig_ooo, fig_refresh, fig_fault (27 cells
+             under ``on_error="record"``) and fig_serve (the capture fed
+             the reference's recorded params and prompts,
+             ``tests/torch_golden/fig_serve_capture.npz``; 66 cells),
+             each module's ``run()``
              at its default (full) size on the kernel, SMLA_SMOKE unset,
              BENCH_JSON in a temporary directory; every cell, printed data
              row and JSON `extra` held against the reference's own
@@ -91,7 +121,7 @@ and the script exits non-zero):
              (the plain version on the CPU) on one probe cell; each
              module's cells, launches, wall, kernel ms (each launch timed
              alone once more, its result the same) and cells/s.
-10. sweep_scale  the sweep engine's resilience and scaling on the card.
+12. sweep_scale  the sweep engine's resilience and scaling on the card.
              On Fig. 12's full-size grid (90 cells, three shape groups in
              one sweep) through ``run_sweep`` (its card path with the
              launcher injected where a launch must fail): a journaled
@@ -113,7 +143,7 @@ and the script exits non-zero):
              early-exit gate's fig_scale section passes (best ratio >=
              1.3, saved >= 0.5); cells/s, buckets/s and nvcc seconds per
              size and mode, the prune child's wall.
-11. attn_bwd_parity  the flash-attention backward kernel against its
+13. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
              a ragged S 200, bf16 and float32, causal and full (dq, dk,
@@ -125,7 +155,7 @@ and the script exits non-zero):
              version and the backward of SDPA, and the forward at the
              same shape beside SDPA's forward (yardsticks; the port never
              calls SDPA).
-12. train    the training path at full width: tinyllama-1.1b (bf16
+14. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
              tokens, 6 steps through `launch/train.py`'s functions
@@ -141,7 +171,7 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-13. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+15. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
              a staging kernel, the product kernel, and for Dedicated-IO L
              product launches + a sum kernel) against its plain versions
              and `matmul_striped`: the reference test's grid in float32
@@ -153,7 +183,7 @@ and the script exits non-zero):
              realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
              staging and the sum bit for bit against their plain versions,
              and every kernel's plain version timed.
-14. wkv_parity  the WKV6 kernel against its plain version (the chunked
+16. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
@@ -172,14 +202,15 @@ and the script exits non-zero):
              own: one device event per call, the kernel), each with its
              bound; the autograd Function's backward timed there, its
              gradients equal, bit for bit, whichever forward ran.
-15. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+17. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
              to 8 of its 32 layers, random weights from seed 0,
              `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
              `launch/train.py`'s functions (attn_impl "pallas", remat
              "full"): exactly 16 wkv6 launches per step (8 layers + their
              recomputes); first a float32 replay of one step from the
-             initial weights: the loss against the kernel's plain version
+             initial weights of the same model cut to 2 layers
+             (RWKV_REPLAY_LAYERS): the loss against the kernel's plain version
              under the same autograd Function, every gradient leaf against
              a float64 witness (the plain and the sequential path in
              float64), within 1.5 x the farther of the two plain float32
@@ -187,7 +218,7 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-16. kernels  one JSON line: each kernel with its launches on its main
+18. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -239,7 +270,12 @@ FIGURES = {"table1": ("paper_table1", {}), "table2": ("paper_table2", {}),
            "fig_policy": ("paper_fig_policy", {}),
            "fig_ooo": ("paper_fig_ooo", {}),
            "fig_refresh": ("paper_fig_refresh", {}),
-           "fig_fault": ("paper_fig_fault", {})}
+           "fig_fault": ("paper_fig_fault", {}),
+           "fig_serve": ("paper_fig_serve", {})}
+#: fig_serve's capture as the reference's full-size run drew it (its
+#: params, prompt tokens and generated tokens; the reference draws them
+#: from JAX keys no other process can repeat), beside the golden file
+GOLDEN_CAPTURE = GOLDEN_FIGS.with_name("fig_serve_capture.npz")
 #: kernel launches a figure makes beyond one per shape group of its
 #: sweeps: Fig. 12's cross-check `engine.simulate` of one cell
 FIGURE_EXTRA_LAUNCHES = {"fig12": 1}
@@ -276,7 +312,29 @@ SERVE_TOL = 5e-2
 #: the same in float32 math, kernels against their plain versions (the
 #: float32 logits tolerance of tests/test_torch_transformer.py)
 SERVE_TOL_F32 = 1e-3
+#: phase `serve_moe`: granite-moe-3b-a800m at its published width and
+#: depth (32 layers, d 1536, 24/8 heads of 64, 40 experts top-8 of width
+#: 512, vocab 49155), served as `serve` serves tinyllama
+MOE_ARCH = "granite-moe-3b-a800m"
+#: phase `serve_vlm`: qwen2-vl-72b at its published width (d 8192, 64/8
+#: heads of 128, d_ff 29568, vocab 152064) cut to 4 of its 80 layers (80
+#: layers' float32 params are ~290 GB; 4 and the embedding and head
+#: ~24 GB), 8 requests of 256 prompt tokens + 16 greedy
+VLM_ARCH, VLM_LAYERS, VLM_NEW = "qwen2-vl-72b", 4, 16
+#: the image block of each serve_vlm prompt: (height, width) patches
+VLM_GRID = (12, 16)
+#: router decisions of the kernel path that may differ from the plain
+#: path's: 1.5 x as many as differ between the reference's own two plain
+#: paths (naive and chunked attention), and at least this fraction of all
+#: (layer, token) decisions
+FLIP_FRAC = 1e-3
 
+#: phase `attn_parity`'s (B, Hq, Hkv, hd) for flash and decode: the
+#: earlier cases (G 8 at hd 64, G 2 at hd 128), granite-moe-3b-a800m's
+#: (G 3, the first odd group) and qwen2-vl-72b's (G 8 at hd 128, decode's
+#: largest shared-memory request)
+ATTN_SHAPES = ((8, 32, 4, 64), (2, 16, 8, 128), (8, 24, 8, 64),
+               (8, 64, 8, 128))
 #: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd)
 BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64))
 #: the bf16 tensor-core kernels' edges, forward and backward, at (B 2,
@@ -342,6 +400,11 @@ WKV_STRONG = (((2, 3, 128, 32), 64), ((2, 3, 128, 32), 16),
 #: one card's 80 GB)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_LAYERS = 8
+#: the float32 replay and its float64 witness run a model of the same
+#: width, batch and sequence cut to 2 layers (RWKV-6's layers are all of
+#: one kind, so 2 keep a whole period): the witness is most of the
+#: phase's time, ~121 s at 8 layers
+RWKV_REPLAY_LAYERS = 2
 RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 4, 2048, 6
 #: RWKV-6's float32 gradients are not held to TRAIN_GRAD_TOL_F32 alone:
 #: two float32 evaluations of one step that differ only in summation
@@ -379,14 +442,18 @@ def float64_mode():
     return Float64()
 
 
+#: each phase's seconds, in order
+PHASE_S: dict = {}
+
+
 def phase(name):
     """Decorator: run the phase, print its line with its seconds."""
     def wrap(fn):
         def run(*a, **kw):
             t0 = time.perf_counter()
             out, msg = fn(*a, **kw)
-            print(f"[{name}] {msg} ({time.perf_counter() - t0:.2f} s)",
-                  flush=True)
+            PHASE_S[name] = time.perf_counter() - t0
+            print(f"[{name}] {msg} ({PHASE_S[name]:.2f} s)", flush=True)
             return out
         return run
     return wrap
@@ -598,8 +665,7 @@ def main() -> int:
                                               paper_configs)
     from repro_torch.core.smla.faults import DegradeMode, FaultConfig
     from repro_torch.core.smla.policies import POLICY_PRESETS
-    from repro_torch.core.smla.traces import (WORKLOADS, TrafficMix,
-                                              WorkloadSpec)
+    from repro_torch.core.smla.traces import WORKLOADS, WorkloadSpec
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -607,8 +673,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.benchmarks import (decode_bench, smla_pipe_bench,
-                                        wkv6_bench)
+    from repro_torch.benchmarks import (decode_bench, paper_fig_serve,
+                                        smla_pipe_bench, wkv6_bench)
     from repro_torch.kernels.smla_pipe import kernel as pipe_kernel
     from repro_torch.kernels.smla_pipe import ref as pipe_ref
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
@@ -618,6 +684,7 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.models import common as cm
     from repro_torch.models import get_model, logits_fn
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import bridge
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.train import checkpoint as ckpt
@@ -924,7 +991,7 @@ def main() -> int:
     def attn_parity():
         gen = torch.Generator(device=dev).manual_seed(0)
         n = 0
-        for b, hq, hkv, hd in ((8, 32, 4, 64), (2, 16, 8, 128)):
+        for b, hq, hkv, hd in ATTN_SHAPES:
             for s_len in (256, 192):
                 for dt in (bf16, f32):
                     for causal in (True, False):
@@ -980,52 +1047,52 @@ def main() -> int:
                   BF16_TOL * float(want_o.float().abs().max()),
                   f"flash route {path}", "flash")
             n += 1
-        b, hq, hkv, hd = 8, 32, 4, 64
         dec_splits = {}
-        for dt in (bf16, f32):
-            for smax in (512, 300):
-                q = randn(gen, (b, 1, hq, hd), dt)
-                kc = randn(gen, (b, smax, hkv, hd), dt)
-                vc = randn(gen, (b, smax, hkv, hd), dt)
-                # 63: one below a chunk boundary; 1; full; odd lengths
-                lens = torch.tensor([smax, 1, 63, 64, 65, 200, smax - 1,
-                                     129], dtype=torch.int32, device=dev)
-                what = f"decode Smax {smax} {dt}"
-                o = dec_kernel.decode_attention(q, kc, vc, lens)
-                want = decode_plain(q, kc, vc, lens)
-                # bf16: one bf16 ulp at max|o|; float32: 1e-5 (the float32
-                # sums run in another order)
-                check(max_abs(o, want), 1e-5 if dt == f32 else
-                      2 ** -7 * float(want.float().abs().max()), what,
-                      "decode")
-                # the combine, bit for bit: its plain version and the
-                # combine kernel alone, on the split kernel's own partials
-                o2, (m, l, acc) = dec_kernel.decode_attention_partials(
-                    q, kc, vc, lens)
-                if not (torch.equal(o2, o) and torch.equal(
-                        dec_ref.combine_splits(m, l, acc, dt).reshape(
-                            o.shape), o)
-                        and torch.equal(dec_kernel.combine(m, l, acc, dt),
-                                        o)):
-                    raise RuntimeError(f"{what}: the combine differs from "
-                                       f"ref.combine_splits")
-                dec_splits[smax] = m.shape[2]
-                # a lane of length 0 gives zeros; the others do not move
-                lens0 = lens.clone()
-                lens0[1] = 0
-                o0 = dec_kernel.decode_attention(q, kc, vc, lens0)
-                others = [i for i in range(b) if i != 1]
-                if o0[1].any() or not torch.equal(o0[others], o[others]):
-                    raise RuntimeError(f"{what}: a lane of length 0")
-                kg, vg = kc.clone(), vc.clone()
-                for i, n_len in enumerate(lens.tolist()):
-                    kg[i, n_len:] = 1e4
-                    vg[i, n_len:] = -1e4
-                if not torch.equal(dec_kernel.decode_attention(q, kg, vg,
-                                                               lens), o):
-                    raise RuntimeError(f"{what}: values past the lengths "
-                                       f"changed the output")
-                n += 1
+        for (b, hq, hkv, hd), dt, smax in (
+                (shape, dt, smax) for shape in ATTN_SHAPES if shape[0] == 8
+                for dt in (bf16, f32) for smax in (512, 300)):
+            q = randn(gen, (b, 1, hq, hd), dt)
+            kc = randn(gen, (b, smax, hkv, hd), dt)
+            vc = randn(gen, (b, smax, hkv, hd), dt)
+            # 63: one below a chunk boundary; 1; full; odd lengths
+            lens = torch.tensor([smax, 1, 63, 64, 65, 200, smax - 1,
+                                 129], dtype=torch.int32, device=dev)
+            what = f"decode B{b} Hq{hq} Hkv{hkv} hd{hd} Smax {smax} {dt}"
+            o = dec_kernel.decode_attention(q, kc, vc, lens)
+            want = decode_plain(q, kc, vc, lens)
+            # bf16: one bf16 ulp at max|o|; float32: 1e-5 (the float32
+            # sums run in another order)
+            check(max_abs(o, want), 1e-5 if dt == f32 else
+                  2 ** -7 * float(want.float().abs().max()), what,
+                  "decode")
+            # the combine, bit for bit: its plain version and the
+            # combine kernel alone, on the split kernel's own partials
+            o2, (m, l, acc) = dec_kernel.decode_attention_partials(
+                q, kc, vc, lens)
+            if not (torch.equal(o2, o) and torch.equal(
+                    dec_ref.combine_splits(m, l, acc, dt).reshape(
+                        o.shape), o)
+                    and torch.equal(dec_kernel.combine(m, l, acc, dt),
+                                    o)):
+                raise RuntimeError(f"{what}: the combine differs from "
+                                   f"ref.combine_splits")
+            dec_splits[f"Hq{hq} Hkv{hkv} hd{hd} Smax{smax}"] = m.shape[2]
+            # a lane of length 0 gives zeros; the others do not move
+            lens0 = lens.clone()
+            lens0[1] = 0
+            o0 = dec_kernel.decode_attention(q, kc, vc, lens0)
+            others = [i for i in range(b) if i != 1]
+            if o0[1].any() or not torch.equal(o0[others], o[others]):
+                raise RuntimeError(f"{what}: a lane of length 0")
+            kg, vg = kc.clone(), vc.clone()
+            for i, n_len in enumerate(lens.tolist()):
+                kg[i, n_len:] = 1e4
+                vg[i, n_len:] = -1e4
+            if not torch.equal(dec_kernel.decode_attention(q, kg, vg,
+                                                           lens), o):
+                raise RuntimeError(f"{what}: values past the lengths "
+                                   f"changed the output")
+            n += 1
 
         # times at the serving path's shapes: prefill of 8 x 256 tokens,
         # and a decode step at the middle of the 63 steps (length 288 in
@@ -1253,19 +1320,19 @@ def main() -> int:
                     f"fwd {bw['fwd_ms']:.4f} ms (SDPA "
                     f"{bw['fwd_library_ms']:.4f})")
 
-    def decode_profile(eng, prefill_fn, decode_fn, tokens, out, n=8):
-        """`n` decode steps of the serving run under torch.profiler: the
-        window's wall time (the profiler slows the host), the device's
-        busy time per step (the device events' own time: kernels, copies
-        and fills) and the device events taking most of it."""
+    def decode_profile(eng, prefill_fn, decode_fn, batch, out, n=8):
+        """`n` decode steps of the serving run (prompt `batch`, model
+        inputs on the card) under torch.profiler: the window's wall time
+        (the profiler slows the host), the device's busy time per step
+        (the device events' own time: kernels, copies and fills) and the
+        device events taking most of it."""
         from torch.profiler import ProfilerActivity, profile
         n = min(n, out.shape[1])
         with torch.inference_mode():
-            cache = eng.model.init_cache(eng.cfg, SERVE_BATCH,
-                                         SERVE_MAX_SEQ, eng.pcfg, device=dev)
-            cache, _ = prefill_fn(eng.params,
-                                  {"tokens": torch.from_numpy(tokens).to(dev)},
-                                  cache)
+            cache = eng.model.init_cache(eng.cfg, out.shape[0],
+                                         eng.scfg.max_seq, eng.pcfg,
+                                         device=dev)
+            cache, _ = prefill_fn(eng.params, batch, cache)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1282,18 +1349,18 @@ def main() -> int:
                 "top_device_events_ms_per_step": [
                     (k[:80], ms / n) for k, ms in kernels[:8]]}
 
-    @phase("serve")
-    def serve():
-        cfg = get_config(SERVE_ARCH)
-        model = get_model(cfg)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        eng = Engine(cfg, ParallelConfig(attn_impl="pallas",
-                                         moe_impl="dense", remat="none"),
-                     ServeConfig(max_seq=SERVE_MAX_SEQ, eos_id=-1),
-                     model.init(gen, cfg, device=dev), device=dev)
-        tokens = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH,
-                             seed=7).batch(0)["tokens"]
-        eng.generate({"tokens": tokens}, 2)          # warm-up, not counted
+    def timed_serve(label, eng, batch, n_new, generate):
+        """The timed serving run of `serve`, `serve_moe` and `serve_vlm`:
+        `generate(batch, n_new)` (a call of ``eng.generate``; its result,
+        or its result's first item, the (B, n_new) tokens) after a
+        warm-up, every model call's last logits and CUDA-event time
+        recorded, the kernels' launch counters reset just before and read
+        just after (flash once per layer, decode and its combine once per
+        layer and decode step: exact), tokens and logits checked, and the
+        steady decode step profiled (`decode_profile`).  Returns
+        (generate's result, the logits of each step, the run's stats)."""
+        cfg = eng.cfg
+        eng.generate(batch, 2)                       # warm-up, not counted
 
         # record every step's logits and time it (CUDA events)
         logits, events = [], []
@@ -1314,37 +1381,61 @@ def main() -> int:
         eng.decode_fn = recorded(decode_fn, "decode")
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         fa_kernel.flash_attention_fwd.launches = 0
         dec_kernel.decode_attention.launches = 0
         dec_kernel.decode_attention.combine_launches = 0
         t0 = time.perf_counter()
-        out, cap = bridge.capture_generate(eng, {"tokens": tokens},
-                                           SERVE_NEW)
+        result = generate(batch, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        out = result[0] if isinstance(result, tuple) else result
         launches = {"flash": fa_kernel.flash_attention_fwd.launches,
                     "decode": dec_kernel.decode_attention.launches,
                     "decode_combine":
                         dec_kernel.decode_attention.combine_launches}
         want = {"flash": cfg.n_layers,
-                "decode": cfg.n_layers * (SERVE_NEW - 1),
-                "decode_combine": cfg.n_layers * (SERVE_NEW - 1)}
+                "decode": cfg.n_layers * (n_new - 1),
+                "decode_combine": cfg.n_layers * (n_new - 1)}
         if launches != want:
-            raise RuntimeError(f"serve: kernel launches {launches}, want "
+            raise RuntimeError(f"{label}: kernel launches {launches}, want "
                                f"{want}")
-        if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) or not (
+        b = batch["tokens"].shape[0]
+        if tuple(out.shape) != (b, n_new) or not (
                 (out >= 0) & (out < cfg.vocab_size)).all():
-            raise RuntimeError(f"serve: bad tokens {tuple(out.shape)}")
+            raise RuntimeError(f"{label}: bad tokens {tuple(out.shape)}")
         if not all(bool(torch.isfinite(lg).all()) for lg in logits):
-            raise RuntimeError("serve: non-finite logits")
+            raise RuntimeError(f"{label}: non-finite logits")
         times = {k: [e0.elapsed_time(e1) for kk, e0, e1 in events if kk == k]
                  for k in ("prefill", "decode")}
-        profile = decode_profile(eng, prefill_fn, decode_fn, tokens, out)
+        profile = decode_profile(eng, prefill_fn, decode_fn, batch, out)
         busy = profile["device_busy_ms_per_step"]
         # idle share of an unprofiled decode step of the main run
         profile["device_idle_share"] = (
             1 - busy * len(times["decode"]) / sum(times["decode"])
             if busy != "not measured" else busy)
+        return result, logits, {
+            "launches": launches, "wall_s": wall,
+            "prefill_ms": times["prefill"][0],
+            "decode_ms_per_step": sum(times["decode"]) / len(times["decode"]),
+            "tokens_per_s": b * n_new / wall, "decode_profile": profile,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    @phase("serve")
+    def serve():
+        cfg = get_config(SERVE_ARCH)
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        eng = Engine(cfg, ParallelConfig(attn_impl="pallas",
+                                         moe_impl="dense", remat="none"),
+                     ServeConfig(max_seq=SERVE_MAX_SEQ, eos_id=-1),
+                     model.init(gen, cfg, device=dev), device=dev)
+        tokens = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH,
+                             seed=7).batch(0)["tokens"]
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        (out, cap), logits, run = timed_serve(
+            "serve", eng, batch, SERVE_NEW,
+            lambda b, n: bridge.capture_generate(eng, b, n))
 
         # the same tokens, teacher-forced, through the plain path
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1368,9 +1459,8 @@ def main() -> int:
                 with torch.inference_mode():
                     cache = model.init_cache(rcfg, SERVE_BATCH,
                                              SERVE_MAX_SEQ, pc, device=dev)
-                    cache, last = model.prefill(
-                        params, {"tokens": torch.from_numpy(tokens).to(dev)},
-                        cache, rcfg, pc)
+                    cache, last = model.prefill(params, batch, cache,
+                                                rcfg, pc)
                     steps.append(logits_fn(params, last, rcfg)[:, -1])
                     for t in range(SERVE_NEW - 1):
                         cache, lg = model.decode(params, out[:, t:t + 1],
@@ -1412,53 +1502,27 @@ def main() -> int:
                                f"(bf16 tolerance {tol16}, float32 "
                                f"{SERVE_TOL_F32})")
         st = {"arch": SERVE_ARCH, "batch": SERVE_BATCH,
-              "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
-              "launches": launches, "wall_s": wall,
-              "prefill_ms": times["prefill"][0],
-              "decode_ms_per_step": sum(times["decode"])
-              / len(times["decode"]),
-              "tokens_per_s": SERVE_BATCH * SERVE_NEW / wall,
-              "vs_plain": gaps, "bf16_tolerance": tol16,
-              "decode_profile": profile, "card": smi}
+              "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW, **run,
+              "vs_plain": gaps, "bf16_tolerance": tol16, "card": smi}
         print(json.dumps({"serve": st}), flush=True)
         return (cap, st), (
             f"{SERVE_ARCH} B{SERVE_BATCH} prompt {SERVE_PROMPT} +"
             f"{SERVE_NEW}: prefill {st['prefill_ms']:.3f} ms, decode "
             f"{st['decode_ms_per_step']:.3f} ms/step, "
-            f"{st['tokens_per_s']:.1f} tok/s ({smi}); launches {launches}; "
+            f"{st['tokens_per_s']:.1f} tok/s ({smi}); launches "
+            f"{st['launches']}; "
             f"logits vs plain {gaps['kernel_vs_naive']:.5f} (bf16, floor "
             f"{gaps['chunked_vs_naive']:.5f}), "
             f"{gaps['kernel_f32_vs_plain_f32']:.6f} (float32)")
 
-    #: benchmarks/paper_fig_serve.py:37-47, in this package's TrafficMix
-    traffic_classes = (
-        TrafficMix("decode_steady", prefill_frac=0.05, arrival="poisson",
-                   n_tenants=4, intensity=1.0),
-        TrafficMix("prefill_heavy", prefill_frac=0.5, arrival="poisson",
-                   n_tenants=4, intensity=1.0),
-        TrafficMix("bursty_tenants", prefill_frac=0.2, arrival="gamma",
-                   cv2=8.0, n_tenants=4, intensity=1.0),
-    )
-    orgs = ("cascaded_mlr", "cascaded_slr")
-
     @phase("serve_sim")
     def serve_sim(cap):
+        # paper_fig_serve's grid for this capture: its three traffic
+        # classes x cascaded MLR/SLR x POLICY_PRESETS
         prof = bridge.StreamProfile.from_capture(cap)
-        cfgs = {name: paper_configs(4)[name] for name in orgs}
-        r_max = max(sc.n_ranks for sc in cfgs.values())
-        banks = next(iter(cfgs.values())).banks_per_rank
-
-        def cells_for(mixes, n_req):
-            return [sweep.SweepCell(f"{mix.name}/{org}", sc,
-                                    bridge.mix_trace(0, mix, prof, n_req,
-                                                     r_max, banks))
-                    for mix in mixes for org, sc in cfgs.items()]
-        cells = cells_for(traffic_classes, 600)
-        presets = tuple(POLICY_PRESETS.values())
-        horizon = default_horizon(sweep.policy_cells(cells, presets))
-        spec = sweep.SweepSpec(tuple(cells),
-                               engine.SimOptions(horizon=horizon),
-                               policies=presets)
+        spec = paper_fig_serve.grid(prof, 600)
+        horizon = spec.options.horizon
+        banks = spec.cells[0].stack.banks_per_rank
         groups = sweep.shape_groups(spec)
         torch.cuda.synchronize()
         kern.launches = 0
@@ -1488,7 +1552,7 @@ def main() -> int:
                    "group")
         # one class x both organisations, default policy, n_req 120:
         # kernel against the plain engine on the card
-        small = cells_for(traffic_classes[:1], 120)
+        small = list(paper_fig_serve.grid(prof, 120).cells[:2])
         if banks != 2:
             raise RuntimeError(f"serve_sim: {banks} banks per rank")
         kernel_vs_plain(small, default_horizon(small), 256,
@@ -1509,6 +1573,290 @@ def main() -> int:
                     f"cell; kernel == plain on {len(small)} cells at n_req "
                     f"120")
 
+    def vlm_positions(b, s):
+        """(3, b, s) M-RoPE ids of prompts laid out as Qwen2-VL lays out
+        an image (arXiv:2409.12191 §2.1): lane i has 4 + 4i text tokens,
+        then a VLM_GRID block of image tokens (one temporal id, height and
+        width ids along the grid, all from the block's start), then text
+        whose three ids continue from the block's largest id + 1."""
+        gh, gw = VLM_GRID
+        out = np.zeros((3, b, s), np.int32)
+        r, c = np.divmod(np.arange(gh * gw), gw)
+        for i in range(b):
+            pre = 4 + 4 * i
+            out[:, i, :pre] = np.arange(pre)
+            blk = slice(pre, pre + gh * gw)
+            out[0, i, blk] = pre
+            out[1, i, blk] = pre + r
+            out[2, i, blk] = pre + c
+            rest = s - pre - gh * gw
+            out[:, i, pre + gh * gw:] = pre + max(gh, gw) + np.arange(rest)
+        if (out[0] == out[1]).all() or (out[1] == out[2]).all():
+            raise RuntimeError("serve_vlm: the M-RoPE streams are equal")
+        return torch.from_numpy(out).to(dev)
+
+    @contextlib.contextmanager
+    def routed(records, forced=None):
+        """`moe.route` records (x, w_router, its own top_ids) of every
+        call; with `forced` (per layer, the (B, T, k) experts of another
+        path), each call returns those experts instead, weighted by its
+        own probabilities renormalised as `route` does, so both paths run
+        the same routing and differ only by rounding."""
+        orig = moe_mod.route
+
+        def route(x, w, cfg):
+            top_w, ids, aux = orig(x, w, cfg)
+            records.append((x, w, ids))
+            if forced is not None:
+                ids = forced[(len(records) - 1) % len(forced)]
+                top_w = torch.softmax(torch.matmul(x.float(), w.float()),
+                                      -1).gather(-1, ids)
+                top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+            return top_w, ids, aux
+        moe_mod.route = route
+        try:
+            yield
+        finally:
+            moe_mod.route = orig
+
+    def routing(records, n_layers):
+        """Per layer, (probabilities (B, T, E), chosen experts (B, T, k))
+        over every token a path routed, in order (one `route` call per
+        layer per model call); the probabilities recomputed as `route`
+        computes them."""
+        return [(torch.cat([torch.softmax(torch.matmul(x.float(), w.float()),
+                                          -1) for x, w, _ in calls], 1),
+                 torch.cat([ids for _, _, ids in calls], 1))
+                for calls in (records[i::n_layers] for i in range(n_layers))]
+
+    def route_diff(a, b):
+        """Path a's router decisions against path b's (`routing` lists):
+        (flipped (L, B, T): another expert set, b's gap between its k-th
+        and (k+1)-th probability (L, B, T), max |a - b| of the
+        probabilities (L, B, T))."""
+        flip, gap, dp = [], [], []
+        for (pa, ia), (pb, ib) in zip(a, b):
+            k = ia.shape[-1]
+            flip.append((ia.sort(-1).values != ib.sort(-1).values).any(-1))
+            top = pb.topk(k + 1, dim=-1).values
+            gap.append(top[..., k - 1] - top[..., k])
+            dp.append((pa - pb).abs().amax(-1))
+        return torch.stack(flip), torch.stack(gap), torch.stack(dp)
+
+    def downstream(flip):
+        """(L, B, T) decisions whose router input a flip can have moved:
+        a flip at (layer l, token t) reaches every later layer at tokens
+        >= t (the residual, then attention)."""
+        seen = flip.cummax(0).values
+        after = torch.zeros_like(flip)
+        after[1:] = seen[:-1]
+        return after.cummax(2).values
+
+    def near_ties(kc, nc, what, forced=False):
+        """The kernel path's router flips against the chunked plain path
+        (`kc`, `route_diff`), held to the two plain paths' own (`nc`,
+        naive against chunked): no more flips than 1.5 x the plain paths'
+        count or FLIP_FRAC of the decisions, and each flip whose inputs
+        differ by rounding only a near-tie: the plain path's k-th and
+        (k+1)-th probabilities within twice the path's rounding, 1.5 x the
+        plain paths' largest probability difference at decisions no flip
+        reaches.  Inputs differ by rounding only at every flip when the
+        plain paths ran the kernel path's experts (`forced`), else at the
+        flips no earlier flip reaches (`downstream`)."""
+        n_dec = kc[0].numel()
+        if forced:
+            primary, clean = kc[0], ~(kc[0] | nc[0])
+        else:
+            reached = downstream(kc[0]) | downstream(nc[0])
+            primary = kc[0] & ~reached
+            clean = ~(reached | kc[0] | nc[0])
+        noise = float(nc[2][clean].max()) if clean.any() else 0.0
+        rounding = 1.5 * noise
+        gaps = kc[1][primary]
+        st = {"decisions": n_dec, "flips": int(kc[0].sum()),
+              "flips_checked": int(primary.sum()),
+              "tokens_flipped": int(kc[0].any(0).sum()),
+              "plain_flips": int(nc[0].sum()),
+              "prob_noise_plain": noise, "rounding": rounding,
+              "prob_gap_kernel_vs_plain": float(kc[2][clean].max())
+              if clean.any() else 0.0,
+              "max_gap_at_checked_flip": float(gaps.max()) if gaps.numel()
+              else 0.0}
+        allowed = max(1.5 * st["plain_flips"], FLIP_FRAC * n_dec)
+        if (st["flips"] > allowed
+                or st["max_gap_at_checked_flip"] > 2 * rounding):
+            raise RuntimeError(f"{what}: router flips {st} (allowed "
+                               f"{allowed} flips, gaps <= {2 * rounding})")
+        return st
+
+    def serve_family(label, cfg, batch, n_new):
+        """`cfg` (random weights from seed 0) served through `Engine` with
+        attn_impl "pallas": the prompt `batch` (model inputs on the card)
+        and `n_new` greedy tokens, launch counters reset just before and
+        read just after, timed as `serve` times; then held against the
+        plain full forward (no cache, attn_impl "chunked") on the same
+        tokens: in bf16 within max(SERVE_TOL, 1.5 x naive vs chunked), a
+        MoE's plain forwards taking the kernel path's experts; in float32
+        (the kernels' float32 builds, a float32 cache) within
+        SERVE_TOL_F32 at every position no router flip reaches
+        (`downstream`), routing left free."""
+        model = get_model(cfg)
+        moe = cfg.family == "moe"
+        n_layers = cfg.n_layers
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, cfg, device=dev)          # float32
+        pc = ParallelConfig(attn_impl="pallas", moe_impl="dense",
+                            remat="none")
+        eng = Engine(cfg, pc, ServeConfig(max_seq=SERVE_MAX_SEQ, eos_id=-1),
+                     params, device=dev)
+        b, s = batch["tokens"].shape
+        rec_k = []
+
+        def generate(bt, n):
+            with routed(rec_k) if moe else contextlib.nullcontext():
+                return eng.generate(bt, n)
+        out, logits, run = timed_serve(label, eng, batch, n_new, generate)
+        kernel16 = torch.stack(logits, 1)            # (B, n_new, V)
+
+        # the generated tokens teacher-forced through the plain full
+        # forward (no cache): logits at the positions the kernel path
+        # sampled from
+        full = {"tokens": torch.cat([batch["tokens"], out[:, :-1]], 1)}
+        if "positions" in batch:      # decode's ids: the cache position
+            t = torch.arange(s, s + n_new - 1, dtype=torch.int32,
+                             device=dev).expand(3, b, n_new - 1)
+            full["positions"] = torch.cat([batch["positions"], t], 2)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+        def plain(impl, rcfg, prm, forced=None):
+            rec = []
+            with torch.inference_mode(), (
+                    routed(rec, forced) if moe else contextlib.nullcontext()):
+                h, _ = model.forward(prm, full, rcfg, dataclasses.replace(
+                    pc, attn_impl=impl))
+                lg = logits_fn(prm, h[:, s - 1:], rcfg)
+            return lg, routing(rec, n_layers) if moe else None
+
+        def kernel32():
+            """The kernel path in float32 with a float32 cache,
+            teacher-forced: prefill and every decode step's logits."""
+            rec, steps = [], []
+            with torch.inference_mode(), (
+                    routed(rec) if moe else contextlib.nullcontext()):
+                cache = model.init_cache(cfg32, b, SERVE_MAX_SEQ, pc,
+                                         device=dev)
+                cache = dict(cache, k=cache["k"].float(),
+                             v=cache["v"].float())
+                cache, last = model.prefill(params, batch, cache, cfg32, pc)
+                steps.append(logits_fn(params, last, cfg32)[:, -1])
+                for t in range(n_new - 1):
+                    cache, lg = model.decode(params, out[:, t:t + 1], cache,
+                                             cfg32, pc)
+                    steps.append(lg[:, -1])
+            return torch.stack(steps, 1), (routing(rec, n_layers) if moe
+                                           else None)
+
+        every = torch.ones((b, n_new), dtype=torch.bool, device=dev)
+        vs = {}
+        # bf16: a MoE's plain paths run the kernel path's experts
+        forced = [ids for _, ids in routing(rec_k, n_layers)] if moe else None
+        c16, rc16 = plain("chunked", cfg, eng.params, forced)
+        n16, rn16 = plain("naive", cfg, eng.params, forced)
+        floor16 = max_abs(n16, c16)
+        tol16 = max(SERVE_TOL, 1.5 * floor16)
+        vs["bf16"] = {"kernel_vs_chunked": max_abs(kernel16, c16),
+                      "naive_vs_chunked": floor16, "tolerance": tol16}
+        vs["bf16"]["token_gap"] = float((c16.max(-1).values - c16.gather(
+            -1, out[..., None].long())[..., 0]).max())
+        if moe:
+            rk = routing(rec_k, n_layers)
+            vs["bf16"]["routing"] = near_ties(
+                route_diff(rk, rc16), route_diff(rn16, rc16),
+                f"{label} bf16", forced=True)
+            # the same forward free to route: how far bf16 noise alone
+            # moves the experts (reported)
+            free = route_diff(rk, plain("chunked", cfg, eng.params)[1])[0]
+            vs["bf16"]["free_running"] = {
+                "flips": int(free.sum()),
+                "tokens_flipped": int(free.any(0).sum()),
+                "tokens": int(free[0].numel())}
+            del rec_k, rk, forced, rc16, rn16
+        # float32: routing free; logits held at the positions no flip
+        # reaches (every layer agreed there and at every earlier token)
+        k32, rk32 = kernel32()
+        c32, rc32 = plain("chunked", cfg32, params)
+        n32, rn32 = plain("naive", cfg32, params)
+        kept_pos = every
+        if moe:
+            kc, nc = route_diff(rk32, rc32), route_diff(rn32, rc32)
+            vs["float32"] = {"routing": near_ties(kc, nc,
+                                                   f"{label} float32")}
+            kept_pos = ~(kc[0] | nc[0]).any(0).cummax(1).values[:, s - 1:]
+        held = bool(kept_pos.any())
+        vs.setdefault("float32", {}).update(
+            kernel_vs_chunked=max_abs(k32[kept_pos], c32[kept_pos])
+            if held else float("inf"),
+            naive_vs_chunked=max_abs(n32[kept_pos], c32[kept_pos])
+            if held else float("inf"),
+            positions_held=int(kept_pos.sum()),
+            positions=int(kept_pos.numel()))
+        print(json.dumps({f"{label}_vs_plain": vs}), flush=True)
+        g16, g32 = vs["bf16"], vs["float32"]
+        if not (g16["kernel_vs_chunked"] <= tol16
+                and g16["token_gap"] <= 2 * tol16
+                and g32["kernel_vs_chunked"] <= SERVE_TOL_F32
+                and 2 * g32["positions_held"] >= g32["positions"]):
+            raise RuntimeError(f"{label}: kernel path vs plain path {vs} "
+                               f"(bf16 tolerance {tol16}, float32 "
+                               f"{SERVE_TOL_F32} on at least half the "
+                               f"positions)")
+        return {"arch": cfg.name, "n_layers": n_layers,
+                "params": cfg.n_params(), "batch": b, "prompt": s,
+                "new_tokens": n_new, **run, "vs_plain": vs, "card": smi}
+
+    def family_line(st):
+        vs = st["vs_plain"]
+        route = ""
+        if "routing" in vs["bf16"]:
+            r16, r32 = vs["bf16"]["routing"], vs["float32"]["routing"]
+            route = (f"; router flips vs plain: bf16 {r16['flips']} of "
+                     f"{r16['decisions']} (plain paths {r16['plain_flips']};"
+                     f" near-tie gaps <= {r16['max_gap_at_checked_flip']:.2e}"
+                     f"), float32 {r32['flips']}")
+        return (f"{st['arch']} ({st['n_layers']} layers) B{st['batch']} "
+                f"prompt {st['prompt']} +{st['new_tokens']}: prefill "
+                f"{st['prefill_ms']:.3f} ms, decode "
+                f"{st['decode_ms_per_step']:.3f} ms/step, "
+                f"{st['tokens_per_s']:.1f} tok/s ({smi}); launches "
+                f"{st['launches']}; logits vs plain "
+                f"{vs['bf16']['kernel_vs_chunked']:.5f} (bf16, floor "
+                f"{vs['bf16']['naive_vs_chunked']:.5f}), "
+                f"{vs['float32']['kernel_vs_chunked']:.6f} (float32, "
+                f"{vs['float32']['positions_held']}/"
+                f"{vs['float32']['positions']} positions){route}")
+
+    @phase("serve_moe")
+    def serve_moe():
+        cfg = get_config(MOE_ARCH)
+        tokens = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH,
+                             seed=7).batch(0)["tokens"]
+        st = serve_family("serve_moe", cfg,
+                          {"tokens": torch.from_numpy(tokens).to(dev)},
+                          SERVE_NEW)
+        print(json.dumps({"serve_moe": st}), flush=True)
+        return st, family_line(st)
+
+    @phase("serve_vlm")
+    def serve_vlm():
+        cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+        tokens = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH,
+                             seed=7).batch(0)["tokens"]
+        st = serve_family("serve_vlm", cfg, {
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "positions": vlm_positions(SERVE_BATCH, SERVE_PROMPT)}, VLM_NEW)
+        print(json.dumps({"serve_vlm": st}), flush=True)
+        return st, family_line(st)
+
     def sweep_json(spec, res):
         """A port sweep as the golden file holds one."""
         return {"horizon": int(spec.options.horizon),
@@ -1522,11 +1870,37 @@ def main() -> int:
         return {**{k: as_json(m[k]) for k in sweep.SCALAR_METRICS},
                 "served": as_json(m["served"]), "ipc": as_json(m["ipc"])}
 
+    def capture_inputs():
+        """fig_serve's recorded capture: ``run()``'s params and batch on
+        the card, and the tokens the reference generated."""
+        from repro_torch.convert import params_from_reference
+        with np.load(GOLDEN_CAPTURE) as z:
+            flat = {k[len("params/"):]: z[k] for k in z.files
+                    if k.startswith("params/")}
+            tokens, generated = z["tokens"], z["generated"]
+        params = params_from_reference(
+            flat, paper_fig_serve.capture_config(), device=dev)
+        return ({"params": params,
+                 "batch": {"tokens": torch.from_numpy(tokens).to(dev)}},
+                generated)
+
     def run_figure(section, gold):
         """One module of `FIGURES` through its ``run()`` on the card,
-        every `run_sweep` recorded; held against its golden section."""
+        every `run_sweep` recorded; held against its golden section
+        (fig_serve's capture fed the reference's recorded inputs)."""
         import importlib
         mod_name, kw = FIGURES[section]
+        if section == "fig_serve":
+            inputs, generated = capture_inputs()
+            kw = dict(kw, **inputs)
+            captured = []
+            orig_capture = paper_fig_serve._capture_profile
+
+            def capture(*a, **k):
+                out = orig_capture(*a, **k)
+                captured.append(out[2])
+                return out
+            paper_fig_serve._capture_profile = capture
         mod = importlib.import_module(f"repro_torch.benchmarks.{mod_name}")
         runs, orig = [], sweep.run_sweep
 
@@ -1543,6 +1917,8 @@ def main() -> int:
             rows = mod.run(**kw)
         finally:
             sweep.run_sweep = orig
+            if section == "fig_serve":
+                paper_fig_serve._capture_profile = orig_capture
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kern.launches
@@ -1590,7 +1966,13 @@ def main() -> int:
         kernel_ms = sum(sum(t["launch_ms"]) for t in timing)
         cells = sum(len(r.names) for _, r, _ in card)
         sweep_s = sum(dt for _, _, dt in card)
-        return {"cells": cells, "launches": launches,
+        # the capture's stats and profile are held in `extra` above; its
+        # greedy tokens (a bf16 model, cuBLAS against XLA on a CPU) are
+        # counted against the reference's, not held
+        tokens = ({"tokens_differing_from_reference": int(
+            (captured[0].cpu().numpy() != generated).sum())}
+            if section == "fig_serve" else {})
+        return {"cells": cells, "launches": launches, **tokens,
                 "shape_groups": groups, "wall_s": wall, "sweep_s": sweep_s,
                 "kernel_ms": kernel_ms, "timing": timing,
                 "cells_per_s": cells / sweep_s if card else None,
@@ -2449,12 +2831,13 @@ def main() -> int:
     @phase("train_rwkv")
     def train_rwkv():
         cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_LAYERS)
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=RWKV_REPLAY_LAYERS)
         pcfg = launch_train.PCFG
         data = SyntheticLM(cfg.vocab_size, RWKV_SEQ, RWKV_BATCH, seed=0)
         batch0 = {k: torch.from_numpy(v).to(dev)
                   for k, v in data.batch(0).items()}
-        state = init_state(0, cfg, device=dev)
+        replay_params = init_state(0, cfg32, device=dev).params
 
         @contextlib.contextmanager
         def swapped(module, name, fn):
@@ -2479,14 +2862,15 @@ def main() -> int:
                            rwkv6.wkv_sequential(r.float(), k.float(),
                                                 v.float(), logw, u, st))
 
-        # float32 replay at full width, one step from the initial weights:
+        # float32 replay at full width and RWKV_REPLAY_LAYERS, one step
+        # from the initial weights:
         # the loss of the kernel path against the same with its plain
         # version under the same Function; the gradients of both, and of
         # the sequential path, against a float64 witness: the plain and
         # the sequential path run in float64 (`float64_mode`), which must
         # agree with each other to W64_TOL
         def grads(impl="pallas", ctx=contextlib.nullcontext,
-                  params=state.params):
+                  params=replay_params):
             with ctx():
                 (loss, _), g = make_grad_fn(cfg32, dataclasses.replace(
                     pcfg, attn_impl=impl))(params, batch0)
@@ -2506,7 +2890,8 @@ def main() -> int:
                                 / w.abs().max().clamp_min(1e-300))
                     for name, w in want.items()}
 
-        params64 = cm.map_tree(lambda t: t.double(), state.params)
+        t_replay = time.perf_counter()
+        params64 = cm.map_tree(lambda t: t.double(), replay_params)
         l64, g64 = grads(ctx=in_float64(plain_kernel), params=params64)
         l64s, g64s = grads("chunked", in_float64(sequential_path), params64)
         err64 = leaf_errs(g64s, g64)
@@ -2525,7 +2910,9 @@ def main() -> int:
         worst64, worst_k = max(err64.values()), max(err_k.values())
         floor32 = max(*err_p.values(), *err_s.values())
         tol32 = max(TRAIN_GRAD_TOL_F32, 1.5 * floor32)
+        replay_s = time.perf_counter() - t_replay
 
+        state = init_state(0, cfg, device=dev)
         step_fn = make_train_step(cfg, pcfg, total=RWKV_STEPS)
         per_step = []
 
@@ -2582,7 +2969,8 @@ def main() -> int:
         tol16 = max(TRAIN_LOSS_TOL_BF16, 1.5 * floor16)
         gap16 = abs(l16["kernel"] - l16["chunked"])
         del state
-        replay = {"bf16_losses": l16, "bf16_gap": gap16,
+        replay = {"layers": RWKV_REPLAY_LAYERS, "wall_s": replay_s,
+                  "bf16_losses": l16, "bf16_gap": gap16,
                   "bf16_floor_chunked_vs_sequential": floor16,
                   "bf16_tolerance": tol16, "f32_loss_kernel": lk,
                   "f32_loss_plain": lp, "f32_loss_sequential": ls,
@@ -2628,7 +3016,8 @@ def main() -> int:
             f"{RWKV_SEQ}: step {med_ms:.1f} ms, {st['tokens_per_s']:.0f} "
             f"tok/s, peak {peak_gb:.1f} GB ({smi}); wkv6 launches "
             f"{launches}; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
-            f"float32 replay grads {worst_k:.2e} from float64 (plain and "
+            f"float32 replay ({RWKV_REPLAY_LAYERS} layers, {replay_s:.1f} "
+            f"s) grads {worst_k:.2e} from float64 (plain and "
             f"sequential paths {floor32:.2e}; float64 paths {worst64:.1e} "
             f"apart), loss {loss_err32:.2e}; bf16 loss gap {gap16:.2e} (floor "
             f"{floor16:.2e})")
@@ -2642,6 +3031,8 @@ def main() -> int:
     attn = attn_parity()
     cap, serve_stats = serve()
     sim_stats = serve_sim(cap)
+    moe_stats = serve_moe()
+    vlm_stats = serve_vlm()
     fig_stats = figures()
     scale_stats = sweep_scale()
     bwd = attn_bwd_parity()
@@ -2687,6 +3078,8 @@ def main() -> int:
             "float32_source": "src/repro_torch/csrc/flash_attention_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
             "launches": serve_stats["launches"]["flash"],
+            "serve_moe_launches": moe_stats["launches"]["flash"],
+            "serve_vlm_launches": vlm_stats["launches"]["flash"],
             "train_launches": train_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
@@ -2709,6 +3102,8 @@ def main() -> int:
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
             "launches": serve_stats["launches"]["decode"],
+            "serve_moe_launches": moe_stats["launches"]["decode"],
+            "serve_vlm_launches": vlm_stats["launches"]["decode"],
             "max_abs_err": attn_err["decode"], **attn["decode"],
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
             "check": "ok"}, {
@@ -2716,6 +3111,8 @@ def main() -> int:
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
             "launches": serve_stats["launches"]["decode_combine"],
+            "serve_moe_launches": moe_stats["launches"]["decode_combine"],
+            "serve_vlm_launches": vlm_stats["launches"]["decode_combine"],
             "max_abs_err": 0.0, **attn["combine"],
             "shape": f"partials of {attn['decode']['splits']} splits of the "
                      f"decode shape, float32 -> o bf16",
@@ -2765,6 +3162,7 @@ def main() -> int:
         return None, f"{len(line['kernels'])} kernels, all checks passed"
 
     kernels()
+    print(json.dumps({"phase_s": PHASE_S}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ and the sweep engine's scaling record must hold (port of
 
     PYTHONPATH=src python -m repro_torch.benchmarks.assert_early_exit
 
-Reads the fig11, fig_policy, fig_ooo, fig_refresh and fig_fault sections
-of ``BENCH_smla_sweep_torch.json`` (or `BENCH_JSON`; written by
+Reads the fig11, fig_policy, fig_ooo, fig_refresh, fig_fault and
+fig_serve sections of ``BENCH_smla_sweep_torch.json`` (or `BENCH_JSON`; written by
 ``repro_torch.benchmarks.run --smoke`` just before this runs),
 rehydrates each through `FigureRecord.from_json` — the SAME typed record
 the emitters write — and fails unless, in each, at least one non-baseline
@@ -19,8 +19,7 @@ size agree on the bandwidth checksum, successive halving saved at least
 the card, where the sync child pays the kernel's ``nvcc`` build that the
 warm child finds done — the best stream_warm/sync ratio reaches
 `STREAM_RATIO_FLOOR`.  A CPU record builds nothing, so its ratio is
-printed, not gated.  The reference also gates fig_serve, which the port
-has not reached yet.
+printed, not gated.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ from repro_torch.benchmarks._util import (BENCH_JSON_DEFAULT,
                                           BENCH_JSON_ENV, FigureRecord)
 
 GATED_FIGURES = ("fig11", "fig_policy", "fig_ooo", "fig_refresh",
-                 "fig_fault")
+                 "fig_fault", "fig_serve")
 
 #: minimum stream_warm/sync cells_per_s ratio the fig_scale record must
 #: reach on its best row (the pipeline with a built kernel library vs the

@@ -29,6 +29,7 @@ BENCHES = [
     "repro_torch.benchmarks.paper_fig_ooo",     # OoO window depth x OooSelect
     "repro_torch.benchmarks.paper_fig_refresh", # refresh / deep power states
     "repro_torch.benchmarks.paper_fig_fault",   # fault injection / degradation
+    "repro_torch.benchmarks.paper_fig_serve",   # serving traffic x org x policy
     "repro_torch.benchmarks.paper_fig_scale",   # sweep-engine scaling
     "repro_torch.benchmarks.smla_pipe_bench",   # SMLA pipeline kernel
 ]

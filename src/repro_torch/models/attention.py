@@ -1,4 +1,4 @@
-"""Attention: RoPE, GQA, three interchangeable implementations (port of
+"""Attention: RoPE / M-RoPE, GQA, three interchangeable implementations (port of
 ``repro/models/attention.py``).
 
 Implementations (``ParallelConfig.attn_impl``):
@@ -17,8 +17,6 @@ All softmax statistics in float32.  Where the reference asks for float32
 products of bf16 operands (``preferred_element_type``), the operands are
 upcast to float32 (`common.matmul_f32`); where it casts probabilities to
 ``v.dtype`` before the product with V, so does this module.
-
-M-RoPE (``rope_type="mrope"``, the VLM family) is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,13 +56,35 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     return _rotate(x.float(), cos, sin).to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL split of the hd/2 frequency bands into (t, h, w) sections —
+    ratio (1/4, 3/8, 3/8): hd=128 -> (16, 24, 24)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x, positions3, theta: float = 1_000_000.0):
+    """Multimodal RoPE.  positions3 (3, B, S) = (temporal, height, width) ids.
+
+    Frequency bands are partitioned into three sections; each section
+    rotates by its own position stream (paper: Qwen2-VL §2.1)."""
+    head_dim = x.shape[-1]
+    ang_all = _rope_angles(positions3, head_dim, theta)    # (3, B, S, hd/2)
+    ang = torch.cat([part[i] for i, part in enumerate(torch.split(
+        ang_all, mrope_sections(head_dim), dim=-1))], dim=-1)  # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
 def position_embed(q, k, positions, rope_type: str, theta: float):
     if rope_type == "rope":
         return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
     if rope_type == "mrope":
-        raise NotImplementedError(
-            "M-RoPE (the VLM family) is not ported yet: ROADMAP, Slice C "
-            "leftovers")
+        return (apply_mrope(q, positions, theta),
+                apply_mrope(k, positions, theta))
     if rope_type == "none":
         return q, k
     raise ValueError(rope_type)

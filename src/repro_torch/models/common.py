@@ -45,14 +45,16 @@ def _is_norm(path: str) -> bool:
 
 
 #: leaves the models read in float32 besides the norms: RWKV6's bonus u
-_FLOAT32_LEAVES = ("bonus",)
+#: and the MoE router (the reference routes in float32)
+_FLOAT32_LEAVES = ("bonus", "router")
 
 
 def cast_weights(params: Params, cfg, device=None) -> Params:
     """The tree on `device` (default: where it is) with every weight the
-    model casts at use (projections, MLP, token-shift mixes, embedding
-    table, head) already in the compute dtype; norm scales and RWKV6's
-    bonus, which the models read in float32, stay float32."""
+    model casts at use (projections, MLP and experts, token-shift mixes,
+    embedding table, head) already in the compute dtype; norm scales,
+    RWKV6's bonus and the MoE router, which the models read in float32,
+    stay float32."""
     tree: dict = {}
     for path, leaf in flatten_paths(params).items():
         leaf = leaf.to(device) if device is not None else leaf

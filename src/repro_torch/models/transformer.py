@@ -1,11 +1,12 @@
-"""Decoder-only transformer, dense family (port of
+"""Decoder-only transformer: dense, VLM (M-RoPE) and MoE families (port of
 ``repro/models/transformer.py``).
 
 One implementation serves forward, prefill and single-token decode; layer
 weights are stacked on a leading L dim, and the reference's ``scan`` over
-them is a Python loop over that dim.  The MoE family is not ported yet
-(ROADMAP Slice D); M-RoPE (the VLM family) raises in
-`attention.position_embed`.  ``forward`` honours ``pcfg.remat == "full"``:
+them is a Python loop over that dim.  A MoE layer's FFN is
+`moe.moe_ffn` and ``forward`` sums its load-balance losses into
+``aux_loss``; the VLM family takes (3, B, S) M-RoPE positions
+(`attention.apply_mrope`).  ``forward`` honours ``pcfg.remat == "full"``:
 each layer runs under ``torch.utils.checkpoint`` and is recomputed in the
 backward, the counterpart of the reference's ``jax.checkpoint(...,
 nothing_saveable)`` (under ``torch.inference_mode()`` nothing is
@@ -28,13 +29,11 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_mod
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE family is not ported yet (ROADMAP Slice D)")
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   f"a transformer of this package")
 
@@ -123,10 +122,16 @@ def _index(tree, i):
 
 
 def _dense_layer(pl, x, positions, cfg, pcfg, cache=None):
+    """One layer: (x', aux_loss) — the MoE router's load-balance loss, or
+    0.0 for a dense FFN."""
     h = cm.rms_norm(x, pl["norm_attn"], cfg.norm_eps)
     x = x + attention_block(pl["attn"], h, positions, cfg, pcfg, cache=cache)
     h = cm.rms_norm(x, pl["norm_mlp"], cfg.norm_eps)
-    return x + mlp_block(pl["mlp"], h, cfg, pcfg)
+    if cfg.family == "moe":
+        m, aux = moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg)
+    else:
+        m, aux = mlp_block(pl["mlp"], h, cfg, pcfg), 0.0
+    return x + m, aux
 
 
 # ----------------------------------------------------------------------------
@@ -158,8 +163,9 @@ def _positions_from_batch(batch, cfg):
     tokens = batch["tokens"]
     b, s = tokens.shape[:2]
     if "positions" in batch:
-        return batch["positions"]
-    return torch.arange(s, device=tokens.device)[None].expand(b, s)
+        return batch["positions"]                 # (B, S); M-RoPE (3, B, S)
+    p = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    return torch.stack([p, p, p]) if cfg.rope_type == "mrope" else p
 
 
 def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
@@ -167,17 +173,18 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
     tokens = batch["tokens"]
     positions = _positions_from_batch(batch, cfg)
     x = embed_tokens(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         pl = _layer(params, i)
         if pcfg.remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux_l = torch.utils.checkpoint.checkpoint(
                 _dense_layer, pl, x, positions, cfg, pcfg,
                 use_reentrant=False)
         else:
-            x = _dense_layer(pl, x, positions, cfg, pcfg)
+            x, aux_l = _dense_layer(pl, x, positions, cfg, pcfg)
+        aux = aux + aux_l
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+    return x, {"aux_loss": aux}
 
 
 # ----------------------------------------------------------------------------
@@ -201,8 +208,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths, pos):
     for i in range(cfg.n_layers):
-        x = _dense_layer(_layer(params, i), x, positions, cfg, pcfg,
-                         cache=(cache["k"][i], cache["v"][i], pos, lengths))
+        x, _ = _dense_layer(_layer(params, i), x, positions, cfg, pcfg,
+                            cache=(cache["k"][i], cache["v"][i], pos,
+                                   lengths))
     return x
 
 
@@ -228,6 +236,8 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
+    if cfg.rope_type == "mrope":
+        positions = positions.expand(3, b, 1)
     x = embed_tokens(params, tokens, cfg)
     lengths = cache["lengths"] + 1
     x = _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths,

@@ -46,8 +46,14 @@ def test_position_embed_none_and_mrope():
     pos = torch.zeros((1, 4), dtype=torch.int32)
     oq, ok = PA.position_embed(tq, tk, pos, "none", 1e4)
     assert oq is tq and ok is tk
-    with pytest.raises(NotImplementedError):
-        PA.position_embed(tq, tk, pos, "mrope", 1e4)
+    # three distinct (temporal, height, width) streams
+    pos3 = np.stack([np.full((1, 4), 2), np.arange(4)[None] + 2,
+                     np.arange(4)[None] * 3]).astype(np.int32)
+    got = PA.position_embed(tq, tk, torch.from_numpy(pos3), "mrope", 1e4)
+    want = RA.position_embed(jnp.asarray(q), jnp.asarray(k),
+                             jnp.asarray(pos3), "mrope", 1e4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)])

@@ -1,7 +1,8 @@
 """The port's `config.py` and `faults.py` (numpy copies) against the
 reference: `to_params()` key by key (same keys, dtypes and values) over
 `paper_configs(2|4|8)` x `POLICY_PRESETS` x the fault scenarios of
-`benchmarks/paper_fig_fault.py`, the 768-policy grid, and the same
+`benchmarks/paper_fig_fault.py`, the 768-policy grid, the COLLAPSE
+layouts of ECC-only, weak-rank-only and dead-layer faults, and the same
 constructions raising `ValueError`."""
 import dataclasses
 import pathlib
@@ -18,7 +19,7 @@ from benchmarks.paper_fig_fault import _fault_grid  # noqa: E402
 from repro.core.smla import policies as ref_policies  # noqa: E402
 from repro.core.smla.config import (ControllerPolicy,  # noqa: E402
                                     StackConfig, paper_configs)
-from repro.core.smla.faults import FaultConfig  # noqa: E402
+from repro.core.smla.faults import DegradeMode, FaultConfig  # noqa: E402
 from repro_torch.core.smla import config as port_config  # noqa: E402
 from repro_torch.core.smla import faults as port_faults  # noqa: E402
 from torch_parity import port_fault, port_policy, port_stack  # noqa: E402
@@ -107,3 +108,34 @@ def test_fault_validation_against_stack_raises():
         port_config.ControllerPolicy.grid(bogus=1)
     with pytest.raises(ValueError):
         port_config.StackConfig().to_params(n_ranks_max=1)
+
+
+#: ranks each paper config keeps under COLLAPSE when no layer is dead
+#: (`fault_layout` takes its clean branch) and with layer 3 dead
+_COLLAPSE_RANKS = {"baseline": 4, "dedicated_slr": 4, "cascaded_slr": 4,
+                   "dedicated_mlr": 1, "cascaded_mlr": 1}
+
+
+@pytest.mark.parametrize("cname", sorted(_COLLAPSE_RANKS))
+@pytest.mark.parametrize("kw,dead", [
+    (dict(ecc_rate=0.05), False),
+    (dict(weak_ranks=(0,)), False),
+    (dict(dead_layers=(3,)), True),
+    (dict(ecc_rate=0.05, weak_ranks=(0,), dead_layers=(3,)), True)],
+    ids=["ecc", "weak", "dead3", "all"])
+def test_collapse_layouts(cname, kw, dead):
+    """COLLAPSE falls back to one rank only when a layer is lost: ECC-only
+    and weak-rank-only faults keep each config's ranks, a dead layer
+    collapses every config to one, in both packages alike."""
+    fc = FaultConfig(degrade=DegradeMode.COLLAPSE, **kw)
+    ref = dataclasses.replace(paper_configs(4)[cname], faults=fc)
+    got = port_stack(ref)
+    want_lay, got_lay = ref.fault_layout(), got.fault_layout()
+    assert got_lay["n_ranks"] == want_lay["n_ranks"] == (
+        1 if dead else _COLLAPSE_RANKS[cname])
+    assert got_lay["survivors"] == want_lay["survivors"]
+    for key in ("dur", "ref_derate"):
+        np.testing.assert_array_equal(np.asarray(got_lay[key]),
+                                      np.asarray(want_lay[key]))
+    _assert_params_equal(got.to_params(), ref.to_params(),
+                         f"{cname}%{fc.tag}")

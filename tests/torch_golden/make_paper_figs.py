@@ -6,7 +6,8 @@ script).
         python tests/torch_golden/make_paper_figs.py [SECTION ...]
 
 Each section is one module of ``benchmarks/``: Tables 1-2, Figs. 11-14,
-fig_policy, fig_ooo, fig_refresh and fig_fault.  The script calls the
+fig_policy, fig_ooo, fig_refresh, fig_fault and fig_serve.  The script
+calls the
 module's own ``run()`` at its default (full) size, ``SMLA_SMOKE`` unset and
 ``BENCH_JSON`` pointed at a temporary file, and records every
 ``SweepResult`` by wrapping ``repro.core.smla.sweep.run_sweep`` for the
@@ -16,6 +17,14 @@ widths and per cell the scalar metrics of ``sweep.SCALAR_METRICS`` (ints
 as ints), ``served`` and ``ipc`` per core; per module the printed rows
 and the ``extra`` payload of its JSON record (rows, geomeans, mixes).
 Floats are stored unrounded (JSON's ``repr``-exact numbers).
+
+fig_serve's capture serves a reduced model whose params and prompt
+batch the reference draws from JAX keys, the batch's folded with a
+string hash that Python randomises per process, so no other process can
+draw them again.  ``repro.serve.bridge.capture_generate`` is wrapped for
+the call, and the arrays it was given and the tokens it generated go to
+`CAPTURE` beside the golden file (`capture_arrays` reads them back):
+``params/<dotted path>`` float32, ``tokens`` and ``generated`` int32.
 
 Fig. 11's second pass asks for ``backend="pallas"`` in interpret mode,
 which off-TPU is far too slow at full size: the wrapper answers that
@@ -50,6 +59,8 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 GOLDEN = pathlib.Path(__file__).resolve().parent / "paper_figs.json"
+#: fig_serve's capture inputs and output, as the reference's run drew them
+CAPTURE = GOLDEN.with_name("fig_serve_capture.npz")
 
 #: section -> the reference module that produces it
 SECTIONS = {
@@ -63,6 +74,7 @@ SECTIONS = {
     "fig_ooo": "benchmarks.paper_fig_ooo",
     "fig_refresh": "benchmarks.paper_fig_refresh",
     "fig_fault": "benchmarks.paper_fig_fault",
+    "fig_serve": "benchmarks.paper_fig_serve",
     "fig_scale": "benchmarks.paper_fig_scale",
 }
 
@@ -129,6 +141,39 @@ def recording(sweep_mod, sweeps: list, substitute_pallas: bool = False):
         sweep_mod.run_sweep = orig
 
 
+@contextlib.contextmanager
+def capture_recording(arrays: dict):
+    """Wrap the reference's ``bridge.capture_generate`` so that its
+    engine's params, its batch's tokens and the generated tokens land in
+    `arrays` as numpy."""
+    from repro.models import common as ref_common
+    from repro.serve import bridge
+    orig = bridge.capture_generate
+
+    def capture_generate(eng, batch, max_new_tokens):
+        out, cap = orig(eng, batch, max_new_tokens)
+        arrays.update({f"params/{k}": np.asarray(v, np.float32) for k, v in
+                       ref_common.flatten_paths(eng.params).items()})
+        arrays["tokens"] = np.asarray(batch["tokens"], np.int32)
+        arrays["generated"] = np.asarray(out, np.int32)
+        return out, cap
+
+    bridge.capture_generate = capture_generate
+    try:
+        yield
+    finally:
+        bridge.capture_generate = orig
+
+
+def capture_arrays() -> tuple[dict, dict, np.ndarray]:
+    """fig_serve's recorded capture: (flat params {dotted path: float32},
+    batch {"tokens": int32}, generated int32)."""
+    with np.load(CAPTURE) as z:
+        params = {k[len("params/"):]: z[k] for k in z.files
+                  if k.startswith("params/")}
+        return params, {"tokens": z["tokens"]}, z["generated"]
+
+
 def extra_of(section: dict) -> dict:
     return {k: v for k, v in section.items() if k not in RECORD_KEYS}
 
@@ -187,13 +232,15 @@ def make_section(name: str) -> dict:
     from repro.core.smla import sweep as sweep_mod
     mod = importlib.import_module(SECTIONS[name])
     sweeps: list = []
+    arrays: dict = {}
     saved = {k: os.environ.pop(k, None) for k in ("SMLA_SMOKE",
                                                   "BENCH_JSON")}
     try:
         with tempfile.TemporaryDirectory() as tmp:
             bench = os.path.join(tmp, "bench.json")
             os.environ["BENCH_JSON"] = bench
-            with recording(sweep_mod, sweeps, substitute_pallas=True):
+            with recording(sweep_mod, sweeps, substitute_pallas=True), \
+                    capture_recording(arrays):
                 rows = mod.run()
             emitted = {}
             if os.path.exists(bench):
@@ -207,6 +254,8 @@ def make_section(name: str) -> dict:
     out = {"module": SECTIONS[name], "rows": list(rows), "sweeps": sweeps}
     if name in emitted:
         out["extra"] = extra_of(emitted[name])
+    if arrays:
+        out["capture_arrays"] = arrays
     return out
 
 
@@ -237,6 +286,9 @@ def main(argv=None) -> int:
     data["provenance"] = provenance()
     for name in names:
         data[name] = make_section(name)
+        arrays = data[name].pop("capture_arrays", None)
+        if arrays is not None:
+            np.savez_compressed(CAPTURE, **arrays)
         write(data)
         sweeps = data[name].get("sweeps", [])
         print(f"{name}: {len(sweeps)} sweep(s), "
