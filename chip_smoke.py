@@ -30,19 +30,21 @@ and the script exits non-zero):
              one workload's 5 IO-model cells at full n_req are held
              against the plain version, and the kernel, the plain version
              and the main path's launches are timed with CUDA events
-             (with us per simulated cycle of the slowest cell); the
-             bucketed plan (one launch per bucket) is timed once more for
-             the record, its chunks and metrics equal to the main path's,
-             and so is the grid as one launch at one chunk width.
+             (with us per simulated cycle of the slowest cell); on the
+             grid's cells of RETIME_WORKLOADS (75 of 465) the bucketed
+             plan (one launch per bucket) and the cells as one launch at
+             one chunk width are timed for the record, their chunks and
+             metrics equal to the main path's on those cells.
 6. attn_parity  the flash-attention and flash-decode kernels against
              their plain versions on the card: flash at (B 8, Hq 32,
              Hkv 4, hd 64), (B 2, Hq 16, Hkv 8, hd 128) and the two new
              families' shapes, (B 8, Hq 24, Hkv 8, hd 64) (granite-moe,
-             G 3) and (B 8, Hq 64, Hkv 8, hd 128) (qwen2-vl, G 8), S in
+             G 3), (B 8, Hq 64, Hkv 8, hd 128) (qwen2-vl, G 8) and (B 8,
+             Hq 32, Hkv 32, hd 112) (zamba2-7b, the padded path), S in
              {256, 192}, bf16 and float32, causal and full (`o` and `lse`);
              the bf16 tensor-core kernel's edges at (B 2, Hq 8, Hkv 2):
-             hd 16, 32, 64 and 128 x S in {1, 200, 2000} (and 192, 256
-             at hd 16 and 32), causal and full; one call of each dtype
+             hd 16, 32, 64, 112 and 128 x S in {1, 200, 2000} (and 192,
+             256 at hd 16 and 32), causal and full; one call of each dtype
              with the route counts read, so float32 shows it still runs
              the CUDA-core kernel (held at 1e-5); decode at the B-8
              shapes above, Smax in {512, 300} with mixed lengths, bf16
@@ -55,7 +57,9 @@ and the script exits non-zero):
              PyTorch call as a yardstick (SDPA; the port never calls it);
              decode also on the device (``benchmarks/decode_bench.py``: a
              replayed CUDA graph, and the profiler's device events), with
-             its split count, and the combine kernel alone.
+             its split count, and the combine kernel alone; both kernels
+             also at serve_hybrid's hd-112 shapes (flash (8, 256, 32/32,
+             112), decode (8, 1, 32/32, 112) at length 288 of 512).
 7. serve     the serving path at full width: tinyllama-1.1b (22 layers,
              d 2048, 32/4 heads, bf16), random weights from a seeded
              generator, `Engine` with attn_impl "pallas", 8 requests of
@@ -77,7 +81,8 @@ and the script exits non-zero):
              (66 cells, n_req 600)
              through `run_sweep` on the kernel (one launch per shape
              group, counted; every cell must complete; timed, and the
-             bucketed plan timed and held equal for the record), and one
+             bucketed plan on the same grid at n_req RETIME_SERVE_REQ
+             timed and held equal to its main path for the record), and one
              class x both organisations at n_req 120 held against the
              plain engine on the card.
 9. serve_moe the MoE family at full width and depth: granite-moe-3b-a800m
@@ -104,7 +109,18 @@ and the script exits non-zero):
              4 of 80 layers, 8 x 256 + 16 greedy, prompts holding an image
              block (`vlm_positions`: three distinct M-RoPE streams), held
              as serve_moe holds (no router).
-11. figures  the paper's outputs through the port
+11. serve_hybrid  the hybrid family: zamba2-7b at its published width
+             (d 3584, 32/32 heads of 112, d_ff 14336, 112 SSM heads of
+             64, state 64, 2 groups, vocab 32000, bf16) cut to 15 of 81
+             layers (two shared-block sites and a 3-layer tail), 8 x 256
+             + 64 greedy, held as serve_moe holds (no router); flash 2,
+             decode and its combine 2 x 63, exact.
+12. serve_encdec  the encoder-decoder family: whisper-base at its full
+             size (6 + 6 layers, d 512, 8 heads of 64, 1500 frames, vocab
+             51865), 8 x 32 + 64 greedy, the frames from `make_batch`,
+             held the same way; flash 6 (the decoder's prefill), decode
+             and its combine 6 x 63.
+13. figures  the paper's outputs through the port
              (``repro_torch.benchmarks``): Tables 1-2, Figs. 11-14,
              fig_policy, fig_ooo, fig_refresh, fig_fault (27 cells
              under ``on_error="record"``) and fig_serve (the capture fed
@@ -121,7 +137,7 @@ and the script exits non-zero):
              (the plain version on the CPU) on one probe cell; each
              module's cells, launches, wall, kernel ms (each launch timed
              alone once more, its result the same) and cells/s.
-12. sweep_scale  the sweep engine's resilience and scaling on the card.
+14. sweep_scale  the sweep engine's resilience and scaling on the card.
              On Fig. 12's full-size grid (90 cells, three shape groups in
              one sweep) through ``run_sweep`` (its card path with the
              launcher injected where a launch must fail): a journaled
@@ -143,19 +159,20 @@ and the script exits non-zero):
              early-exit gate's fig_scale section passes (best ratio >=
              1.3, saved >= 0.5); cells/s, buckets/s and nvcc seconds per
              size and mode, the prune child's wall.
-13. attn_bwd_parity  the flash-attention backward kernel against its
+15. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
              Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
              a ragged S 200, bf16 and float32, causal and full (dq, dk,
              dv); the bf16 tensor-core kernels' edges, the forward's cases
-             above; every bf16 call twice, bit-identical; and gradients
+             above (hd 112 refused, not launched: the backward is not built
+             for it); every bf16 call twice, bit-identical; and gradients
              through `ops.flash_attention`'s autograd Function against
              autograd through the plain forward, float32 (1e-5) and bf16
              (2^-7 of max |g|).  The kernel is timed beside its plain
              version and the backward of SDPA, and the forward at the
              same shape beside SDPA's forward (yardsticks; the port never
              calls SDPA).
-14. train    the training path at full width: tinyllama-1.1b (bf16
+16. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
              tokens, 6 steps through `launch/train.py`'s functions
@@ -171,7 +188,7 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-15. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+17. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
              a staging kernel, the product kernel, and for Dedicated-IO L
              product launches + a sum kernel) against its plain versions
              and `matmul_striped`: the reference test's grid in float32
@@ -183,7 +200,7 @@ and the script exits non-zero):
              realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
              staging and the sum bit for bit against their plain versions,
              and every kernel's plain version timed.
-16. wkv_parity  the WKV6 kernel against its plain version (the chunked
+18. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
@@ -202,14 +219,14 @@ and the script exits non-zero):
              own: one device event per call, the kernel), each with its
              bound; the autograd Function's backward timed there, its
              gradients equal, bit for bit, whichever forward ran.
-17. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+19. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
-             to 8 of its 32 layers, random weights from seed 0,
+             to 4 of its 32 layers, random weights from seed 0,
              `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
              `launch/train.py`'s functions (attn_impl "pallas", remat
-             "full"): exactly 16 wkv6 launches per step (8 layers + their
+             "full"): exactly 8 wkv6 launches per step (4 layers + their
              recomputes); first a float32 replay of one step from the
-             initial weights of the same model cut to 2 layers
+             initial weights of the same model cut to 1 layer
              (RWKV_REPLAY_LAYERS): the loss against the kernel's plain version
              under the same autograd Function, every gradient leaf against
              a float64 witness (the plain and the sequential path in
@@ -218,7 +235,7 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-18. kernels  one JSON line: each kernel with its launches on its main
+20. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -329,19 +346,44 @@ VLM_GRID = (12, 16)
 #: (layer, token) decisions
 FLIP_FRAC = 1e-3
 
+#: phase `serve_hybrid`: zamba2-7b at its published width (d 3584, 32/32
+#: heads of 112, d_ff 14336, 112 SSM heads of 64, state 64, 2 groups, conv
+#: 4, chunk 128, vocab 32000) cut to 15 of its 81 layers: two shared-block
+#: sites (after layers 6 and 12) and a 3-layer tail, so both branches of
+#: the model's layer loop run (the cut is the time budget's, as
+#: serve_vlm's); 8 x 256 + 64 greedy, as `serve`
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 15
+#: phase `serve_encdec`: whisper-base at its full size (6 + 6 layers, d
+#: 512, 8 heads of 64, 1500 encoder frames, vocab 51865), 8 requests of 32
+#: prompt tokens + 64 greedy, frame embeddings from `make_batch`
+ENCDEC_ARCH, ENCDEC_PROMPT = "whisper-base", 32
+#: the README grid's workloads whose cells (75 of 465) phase `grid` runs
+#: once more through the bucketed plan (a launch per makespan bucket) and
+#: as one launch, for the record: a spread of makespans (several buckets)
+#: without the arrival-bound low.0x cells that set the full grid's
+#: slowest launches
+RETIME_WORKLOADS = ("low.07", "mid.05", "high.05", "stream.3", "tpc.2")
+#: requests per core of the serve_sim grid that `serve_sim` times through
+#: the bucketed plan, for the record (the main path runs n_req 600)
+RETIME_SERVE_REQ = 120
 #: phase `attn_parity`'s (B, Hq, Hkv, hd) for flash and decode: the
 #: earlier cases (G 8 at hd 64, G 2 at hd 128), granite-moe-3b-a800m's
-#: (G 3, the first odd group) and qwen2-vl-72b's (G 8 at hd 128, decode's
-#: largest shared-memory request)
+#: (G 3, the first odd group), qwen2-vl-72b's (G 8 at hd 128, decode's
+#: largest shared-memory request) and zamba2-7b's shared attention (G 1 at
+#: hd 112, the padded path)
 ATTN_SHAPES = ((8, 32, 4, 64), (2, 16, 8, 128), (8, 24, 8, 64),
-               (8, 64, 8, 128))
+               (8, 64, 8, 128), (8, 32, 32, 112))
+#: decode at serve_hybrid's step halfway through its 64 new tokens:
+#: (B, Hq, Hkv, hd, Smax, length), as `decode_bench.SERVING`
+HYBRID_DECODE = (8, 32, 32, 112, 512, 288)
 #: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd)
 BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64))
 #: the bf16 tensor-core kernels' edges, forward and backward, at (B 2,
 #: Hq 8, Hkv 2): (hd, S) for every head dim, S one row, ragged at the
 #: kernels' 64-row tiles (200, 2000) and, at hd 16 and 32, the S of the
-#: cases above (192, 256)
-FLASH_EDGES = tuple((hd, s) for hd in (16, 32, 64, 128)
+#: cases above (192, 256); hd 112 (the forward's alone: the backward
+#: refuses it) takes the same S
+FLASH_EDGES = tuple((hd, s) for hd in (16, 32, 64, 112, 128)
                     for s in (1, 200, 2000)) + tuple(
     (hd, s) for hd in (16, 32) for s in (192, 256))
 #: bf16 products against the plain version: this fraction of max |o| or
@@ -395,16 +437,16 @@ WKV_STRONG = (((2, 3, 128, 32), 64), ((2, 3, 128, 32), 16),
               ((4, 40, 2048, 64), 64))
 #: the training config and run of phase `train_rwkv`: rwkv6-3b at full
 #: width (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) with its depth
-#: cut from 32 layers to 8 (full depth holds 36.9 GB of float32 params,
+#: cut from 32 layers to 4 (full depth holds 36.9 GB of float32 params,
 #: m and v, twice that during the out-of-place AdamW update: more than
-#: one card's 80 GB)
+#: one card's 80 GB; 4 keeps the script within its time budget)
 RWKV_ARCH = "rwkv6-3b"
-RWKV_LAYERS = 8
+RWKV_LAYERS = 4
 #: the float32 replay and its float64 witness run a model of the same
-#: width, batch and sequence cut to 2 layers (RWKV-6's layers are all of
-#: one kind, so 2 keep a whole period): the witness is most of the
-#: phase's time, ~121 s at 8 layers
-RWKV_REPLAY_LAYERS = 2
+#: width, batch and sequence cut to 1 layer (RWKV-6's layers are all of
+#: one kind, so one holds every operation of the model): the witness is
+#: most of the phase's time, ~27 s a layer
+RWKV_REPLAY_LAYERS = 1
 RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 4, 2048, 6
 #: RWKV-6's float32 gradients are not held to TRAIN_GRAD_TOL_F32 alone:
 #: two float32 evaluations of one step that differ only in summation
@@ -683,7 +725,7 @@ def main() -> int:
     from repro_torch.models import rwkv6
     from repro_torch.launch import train as launch_train
     from repro_torch.models import common as cm
-    from repro_torch.models import get_model, logits_fn
+    from repro_torch.models import get_model, logits_fn, make_batch
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve import bridge
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -921,31 +963,40 @@ def main() -> int:
         group_ms, again = timed_groups(spec)
         same_sweep(again, res, "grid timed")
         grid_ms = sum(group_ms)
-        # the bucketed plan once more, for the record (one launch per
-        # makespan bucket, each timed alone): its chunks and every metric
-        # must equal the main path's
-        bucket_ms, bucketed = timed_buckets(spec)
-        same_sweep(bucketed, res, "grid bucketed vs one launch per group")
-        # the same grid as one launch at one chunk width (one bucket, no
-        # makespan batching); its metrics must equal the main path's
+        # the bucketed plan (one launch per makespan bucket, each timed
+        # alone) and the grid as one launch at one chunk width (one
+        # bucket, no makespan batching), for the record, on the README
+        # grid's cells of RETIME_WORKLOADS: their chunks and every metric
+        # must equal the main path's on those cells
+        t_re = time.perf_counter()
+        few = [c for c in cells if c.name.split("/")[-1] in RETIME_WORKLOADS]
+        few_spec = sweep.SweepSpec(tuple(few), engine.SimOptions(
+            horizon=default_horizon(few)))
+        few_res = sweep.run_sweep(few_spec)
+        bucket_ms, bucketed = timed_buckets(few_spec)
+        same_sweep(bucketed, few_res, "grid bucketed vs one launch per "
+                   "group")
         (one,) = sweep._plan(dataclasses.replace(
-            spec, makespan_batching=False), spec.options, cells, "cuda")
-        one_ms, one_out = launch_bucket(one, horizon, core)
+            few_spec, makespan_batching=False), few_spec.options, few,
+            "cuda")
+        one_ms, one_out = launch_bucket(one, few_spec.options.horizon, core)
         compare({k: v.cpu() for k, v in one_out.items()},
-                {k: torch.from_numpy(np.stack([res[one.group[j].name][k]
+                {k: torch.from_numpy(np.stack([few_res[one.group[j].name][k]
                                                for j in one.positions]))
                  for k in one_out}, "grid as one launch",
                 skip=("chunks_run",))
+        retime_s = time.perf_counter() - t_re
         stats = {
             "cells": len(res.names), "horizon": horizon, "wall_s": wall,
             "cells_per_s": len(res.names) / wall, "launches": launches,
             "shape_groups": groups, "buckets": len(res.buckets),
             "grid_kernel_ms": grid_ms, "group_ms": group_ms,
-            "grid_bucketed_ms": sum(bucket_ms),
-            "grid_one_launch_ms": one_ms, "one_launch_chunk": one.chunk,
+            "retime_cells": len(few), "retime_s": retime_s,
+            "retime_bucketed_ms": sum(bucket_ms),
+            "retime_one_launch_ms": one_ms, "one_launch_chunk": one.chunk,
             **cycle_times(res, cells, grid_ms),
             "chunks_run_sum": int(sc["chunks_run"].sum()),
-            "bucket_ms": bucket_ms,
+            "retime_bucket_ms": bucket_ms,
             "bucket_max_chunks": [b["chunks_run"] for b in res.buckets],
             "compare_cells": [c.name for c in five], "compare_ms": ms,
             "compare_plain_ms": plain_ms, "bound_ms": b_ms,
@@ -956,9 +1007,10 @@ def main() -> int:
         return stats, (f"{len(res.names)} cells in {wall:.3f} s "
                        f"({len(res.names) / wall:.1f} cells/s), kernel "
                        f"{grid_ms:.3f} ms over {launches} launch(es), one "
-                       f"per shape group ({stats['grid_bucketed_ms']:.3f} "
-                       f"ms over {len(bucket_ms)} bucket launches, "
-                       f"{one_ms:.3f} ms as one launch at one width), "
+                       f"per shape group (on {len(few)} of its cells: "
+                       f"{stats['retime_bucketed_ms']:.3f} ms over "
+                       f"{len(bucket_ms)} bucket launches, {one_ms:.3f} ms "
+                       f"as one launch at one width, {retime_s:.2f} s), "
                        f"{stats['us_per_cycle']:.4f} us per cycle of the "
                        f"slowest cell, chunks_run sum "
                        f"{stats['chunks_run_sum']}")
@@ -1145,7 +1197,35 @@ def main() -> int:
               "library_ms": None,
               "bound_ms": parts_bytes / PEAK_BYTES_S * 1e3,
               "bound_by": "bytes"}
-        out = {"flash": fa, "decode": de, "combine": co}
+        # zamba2-7b's shared attention (hd 112, the padded path) at
+        # serve_hybrid's shapes, timed as above: its prefill (8 x 256,
+        # 32/32 heads) and a decode step at length 288 of 512
+        q, k, v = (randn(gen, (SERVE_BATCH, SERVE_PROMPT, 32, 112), bf16)
+                   for _ in range(3))
+        tq, tk, tv = (x.transpose(1, 2) for x in (q, k, v))
+        fa112 = {"ms": cuda_ms(lambda: fa_kernel.flash_attention_fwd(
+                     q, k, v), reps=5, calls=20)[0],
+                 "plain_ms": cuda_ms(lambda: flash_plain(q, k, v), reps=3,
+                                     calls=5)[0],
+                 "library_ms": cuda_ms(lambda: sdpa(tq, tk, tv,
+                                                    is_causal=True),
+                                       reps=5, calls=20)[0]}
+        fa112["bound_ms"], fa112["bound_by"] = attn_bound_ms(
+            *flash_work(q, k))
+        bench = decode_bench.run(HYBRID_DECODE)
+        qd, kc, vc, lens = decode_bench.inputs(*HYBRID_DECODE)
+        de112 = {"ms": bench["kernel_ms"],
+                 "device_ms": bench["kernel_device_ms"],
+                 "profiled_ms": bench["kernel_profiled_ms"],
+                 "plain_ms": cuda_ms(lambda: decode_plain(qd, kc, vc, lens),
+                                     reps=3, calls=5)[0],
+                 "library_ms": bench["sdpa_ms"],
+                 "library_device_ms": bench["sdpa_device_ms"],
+                 "splits": dec_kernel.layout(qd, kc, vc, lens).ints[-2]}
+        de112["bound_ms"], de112["bound_by"] = attn_bound_ms(
+            *decode_work(qd, kc, lens))
+        out = {"flash": fa, "decode": de, "combine": co,
+               "flash_hd112": fa112, "decode_hd112": de112}
         print(json.dumps({"attn_parity": out}), flush=True)
         return out, (f"{n} kernel-vs-plain checks passed (max abs err "
                      f"flash {attn_err['flash']}, decode "
@@ -1155,7 +1235,11 @@ def main() -> int:
                      f"{de['device_ms']:.4f} ms ({de['splits']} splits; "
                      f"SDPA {de['library_ms']:.4f}, device "
                      f"{de['library_device_ms']:.4f}), combine "
-                     f"{co['device_ms']:.4f} ms on the device")
+                     f"{co['device_ms']:.4f} ms on the device; hd 112: "
+                     f"flash {fa112['ms']:.4f} ms (SDPA "
+                     f"{fa112['library_ms']:.4f}), decode device "
+                     f"{de112['device_ms']:.4f} ms (SDPA "
+                     f"{de112['library_device_ms']:.4f})")
 
     def flash_bwd_plain(q, k, v, o, lse, do, causal=True):
         t = lambda x: x.transpose(1, 2)  # noqa: E731
@@ -1215,11 +1299,26 @@ def main() -> int:
                                                  max_abs(g, w))
                     n += 1
 
-        # the bf16 tensor-core kernels' edges, as in attn_parity.  At
+        # the bf16 tensor-core kernels' edges, as in attn_parity, at the
+        # backward's head dims (hd 112 must be refused, not run).  At
         # S = 1, dq and dk are zero in exact arithmetic and both sides
         # hold only rounding noise: there they are held to BF16_TOL of
         # max |dv| instead of their own max
         for hd, s_len in FLASH_EDGES:
+            if hd not in fa_kernel.BWD_HEAD_DIMS:
+                q = randn(gen, (2, s_len, 8, hd), bf16)
+                k = randn(gen, (2, s_len, 2, hd), bf16)
+                o, lse = fa_kernel.flash_attention_fwd(q, k, k)
+                before = fa_kernel.flash_attention_bwd.launches
+                try:
+                    fa_kernel.flash_attention_bwd(q, k, k, o, lse, q)
+                except ValueError:
+                    pass
+                else:
+                    raise RuntimeError(f"flash bwd ran at hd {hd}")
+                if fa_kernel.flash_attention_bwd.launches != before:
+                    raise RuntimeError(f"flash bwd launched at hd {hd}")
+                continue
             for causal in (True, False):
                 q, do = (randn(gen, (2, s_len, 8, hd), bf16)
                          for _ in range(2))
@@ -1349,15 +1448,23 @@ def main() -> int:
                 "top_device_events_ms_per_step": [
                     (k[:80], ms / n) for k, ms in kernels[:8]]}
 
+    def attn_sites(cfg):
+        """Causal self-attention layers of a model call: the hybrid
+        family's shared-block sites (n_layers // attn_every), else one
+        per (decoder) layer."""
+        return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                else cfg.n_layers)
+
     def timed_serve(label, eng, batch, n_new, generate):
-        """The timed serving run of `serve`, `serve_moe` and `serve_vlm`:
+        """The timed serving run of `serve` and the serve_* family phases:
         `generate(batch, n_new)` (a call of ``eng.generate``; its result,
         or its result's first item, the (B, n_new) tokens) after a
         warm-up, every model call's last logits and CUDA-event time
         recorded, the kernels' launch counters reset just before and read
-        just after (flash once per layer, decode and its combine once per
-        layer and decode step: exact), tokens and logits checked, and the
-        steady decode step profiled (`decode_profile`).  Returns
+        just after (flash once per self-attention site, `attn_sites`,
+        decode and its combine once per site and decode step: exact),
+        tokens and logits checked, and the steady decode step profiled
+        (`decode_profile`).  Returns
         (generate's result, the logits of each step, the run's stats)."""
         cfg = eng.cfg
         eng.generate(batch, 2)                       # warm-up, not counted
@@ -1394,9 +1501,9 @@ def main() -> int:
                     "decode": dec_kernel.decode_attention.launches,
                     "decode_combine":
                         dec_kernel.decode_attention.combine_launches}
-        want = {"flash": cfg.n_layers,
-                "decode": cfg.n_layers * (n_new - 1),
-                "decode_combine": cfg.n_layers * (n_new - 1)}
+        sites = attn_sites(cfg)
+        want = {"flash": sites, "decode": sites * (n_new - 1),
+                "decode_combine": sites * (n_new - 1)}
         if launches != want:
             raise RuntimeError(f"{label}: kernel launches {launches}, want "
                                f"{want}")
@@ -1547,9 +1654,14 @@ def main() -> int:
         group_ms, again = timed_groups(spec)
         same_sweep(again, res, "serve_sim timed")
         kernel_ms = sum(group_ms)
-        bucket_ms, bucketed = timed_buckets(spec)
-        same_sweep(bucketed, res, "serve_sim bucketed vs one launch per "
-                   "group")
+        # the bucketed plan, for the record, on the same grid at n_req
+        # RETIME_SERVE_REQ: equal to the main path's on it
+        t_re = time.perf_counter()
+        few_spec = paper_fig_serve.grid(prof, RETIME_SERVE_REQ)
+        bucket_ms, bucketed = timed_buckets(few_spec)
+        same_sweep(bucketed, sweep.run_sweep(few_spec),
+                   "serve_sim bucketed vs one launch per group")
+        retime_s = time.perf_counter() - t_re
         # one class x both organisations, default policy, n_req 120:
         # kernel against the plain engine on the card
         small = list(paper_fig_serve.grid(prof, 120).cells[:2])
@@ -1560,15 +1672,17 @@ def main() -> int:
         st = {"cells": len(res.names), "horizon": horizon,
               "launches": launches, "shape_groups": groups,
               "buckets": len(res.buckets), "wall_s": wall,
-              "kernel_ms": kernel_ms, "bucketed_kernel_ms": sum(bucket_ms),
+              "kernel_ms": kernel_ms, "retime_n_req": RETIME_SERVE_REQ,
+              "retime_bucketed_ms": sum(bucket_ms), "retime_s": retime_s,
               **cycle_times(res, sweep._sweep_cells(spec), kernel_ms),
               "profile": dataclasses.asdict(prof),
               "mean_bandwidth_gbps": float(sc["bandwidth_gbps"].mean())}
         print(json.dumps({"serve_sim": st}), flush=True)
         return st, (f"{len(res.names)} cells in {wall:.3f} s, {launches} "
                     f"launch(es), one per shape group, kernel "
-                    f"{kernel_ms:.3f} ms ({st['bucketed_kernel_ms']:.3f} ms "
-                    f"over {len(bucket_ms)} bucket launches), "
+                    f"{kernel_ms:.3f} ms (at n_req {RETIME_SERVE_REQ}: "
+                    f"{st['retime_bucketed_ms']:.3f} ms over "
+                    f"{len(bucket_ms)} bucket launches, {retime_s:.2f} s), "
                     f"{st['us_per_cycle']:.4f} us per cycle of the slowest "
                     f"cell; kernel == plain on {len(small)} cells at n_req "
                     f"120")
@@ -1689,7 +1803,7 @@ def main() -> int:
                                f"{allowed} flips, gaps <= {2 * rounding})")
         return st
 
-    def serve_family(label, cfg, batch, n_new):
+    def serve_family(label, cfg, batch, n_new, schedule_floor=False):
         """`cfg` (random weights from seed 0) served through `Engine` with
         attn_impl "pallas": the prompt `batch` (model inputs on the card)
         and `n_new` greedy tokens, launch counters reset just before and
@@ -1699,7 +1813,15 @@ def main() -> int:
         MoE's plain forwards taking the kernel path's experts; in float32
         (the kernels' float32 builds, a float32 cache) within
         SERVE_TOL_F32 at every position no router flip reaches
-        (`downstream`), routing left free."""
+        (`downstream`), routing left free.  With `schedule_floor` (the
+        hybrid family, whose Mamba2 layers run another schedule and other
+        GEMM shapes when cached: a chunked SSD over the prompt and a
+        sequential step per token, against one pass over all tokens), the
+        bf16 logits are also held to the plain paths on the kernel path's
+        own schedule, within max(SERVE_TOL, 1.5 x their naive vs chunked),
+        and the bound against the full forward admits 1.5 x the
+        schedule's own distance from it (plain cached vs plain full, both
+        chunked)."""
         model = get_model(cfg)
         moe = cfg.family == "moe"
         n_layers = cfg.n_layers
@@ -1720,38 +1842,54 @@ def main() -> int:
 
         # the generated tokens teacher-forced through the plain full
         # forward (no cache): logits at the positions the kernel path
-        # sampled from
-        full = {"tokens": torch.cat([batch["tokens"], out[:, :-1]], 1)}
+        # sampled from (the batch's other inputs, such as whisper's
+        # frames, as they are)
+        full = dict(batch, tokens=torch.cat([batch["tokens"], out[:, :-1]],
+                                            1))
         if "positions" in batch:      # decode's ids: the cache position
             t = torch.arange(s, s + n_new - 1, dtype=torch.int32,
                              device=dev).expand(3, b, n_new - 1)
             full["positions"] = torch.cat([batch["positions"], t], 2)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
 
+        def in_dtype(inputs, rcfg):
+            """Model inputs with their float tensors (frame embeddings) in
+            `rcfg`'s compute dtype."""
+            return {k: v.to(cm.compute_dtype(rcfg))
+                    if v.is_floating_point() else v
+                    for k, v in inputs.items()}
+
         def plain(impl, rcfg, prm, forced=None):
             rec = []
             with torch.inference_mode(), (
                     routed(rec, forced) if moe else contextlib.nullcontext()):
-                h, _ = model.forward(prm, full, rcfg, dataclasses.replace(
-                    pc, attn_impl=impl))
+                h, _ = model.forward(prm, in_dtype(full, rcfg), rcfg,
+                                     dataclasses.replace(pc,
+                                                         attn_impl=impl))
                 lg = logits_fn(prm, h[:, s - 1:], rcfg)
             return lg, routing(rec, n_layers) if moe else None
 
-        def kernel32():
-            """The kernel path in float32 with a float32 cache,
-            teacher-forced: prefill and every decode step's logits."""
+        def cached(impl, rcfg, prm):
+            """`impl`'s path through prefill and every decode step (the
+            kernel path's schedule), teacher-forced on the generated
+            tokens, with a float32 cache (every float tensor of it) in a
+            float32 config: each step's logits."""
             rec, steps = [], []
+            pcx = dataclasses.replace(pc, attn_impl=impl)
             with torch.inference_mode(), (
                     routed(rec) if moe else contextlib.nullcontext()):
-                cache = model.init_cache(cfg32, b, SERVE_MAX_SEQ, pc,
+                cache = model.init_cache(rcfg, b, SERVE_MAX_SEQ, pcx,
                                          device=dev)
-                cache = dict(cache, k=cache["k"].float(),
-                             v=cache["v"].float())
-                cache, last = model.prefill(params, batch, cache, cfg32, pc)
-                steps.append(logits_fn(params, last, cfg32)[:, -1])
+                if rcfg.dtype == "float32":
+                    cache = {k: v.float() if torch.is_tensor(v)
+                             and v.is_floating_point() else v
+                             for k, v in cache.items()}
+                cache, last = model.prefill(prm, in_dtype(batch, rcfg),
+                                            cache, rcfg, pcx)
+                steps.append(logits_fn(prm, last, rcfg)[:, -1])
                 for t in range(n_new - 1):
-                    cache, lg = model.decode(params, out[:, t:t + 1], cache,
-                                             cfg32, pc)
+                    cache, lg = model.decode(prm, out[:, t:t + 1], cache,
+                                             rcfg, pcx)
                     steps.append(lg[:, -1])
             return torch.stack(steps, 1), (routing(rec, n_layers) if moe
                                            else None)
@@ -1765,7 +1903,23 @@ def main() -> int:
         floor16 = max_abs(n16, c16)
         tol16 = max(SERVE_TOL, 1.5 * floor16)
         vs["bf16"] = {"kernel_vs_chunked": max_abs(kernel16, c16),
-                      "naive_vs_chunked": floor16, "tolerance": tol16}
+                      "naive_vs_chunked": floor16}
+        if schedule_floor:
+            # the plain paths on the kernel path's own schedule (prefill,
+            # then a decode step per token): the kernels alone against
+            # them, and the schedule's own bf16 noise against the full
+            # forward, which the bound above then admits
+            cc16, cn16 = (cached(impl, cfg, eng.params)[0]
+                          for impl in ("chunked", "naive"))
+            cfloor16 = max_abs(cn16, cc16)
+            vs["bf16"].update(
+                kernel_vs_cached_chunked=max_abs(kernel16, cc16),
+                cached_naive_vs_cached_chunked=cfloor16,
+                cached_tolerance=max(SERVE_TOL, 1.5 * cfloor16),
+                cached_chunked_vs_chunked=max_abs(cc16, c16))
+            tol16 = max(tol16, 1.5 * vs["bf16"]["cached_chunked_vs_chunked"])
+            del cc16, cn16
+        vs["bf16"]["tolerance"] = tol16
         vs["bf16"]["token_gap"] = float((c16.max(-1).values - c16.gather(
             -1, out[..., None].long())[..., 0]).max())
         if moe:
@@ -1783,7 +1937,7 @@ def main() -> int:
             del rec_k, rk, forced, rc16, rn16
         # float32: routing free; logits held at the positions no flip
         # reaches (every layer agreed there and at every earlier token)
-        k32, rk32 = kernel32()
+        k32, rk32 = cached("pallas", cfg32, params)
         c32, rc32 = plain("chunked", cfg32, params)
         n32, rn32 = plain("naive", cfg32, params)
         kept_pos = every
@@ -1804,6 +1958,8 @@ def main() -> int:
         g16, g32 = vs["bf16"], vs["float32"]
         if not (g16["kernel_vs_chunked"] <= tol16
                 and g16["token_gap"] <= 2 * tol16
+                and g16.get("kernel_vs_cached_chunked", 0.0)
+                <= g16.get("cached_tolerance", 0.0)
                 and g32["kernel_vs_chunked"] <= SERVE_TOL_F32
                 and 2 * g32["positions_held"] >= g32["positions"]):
             raise RuntimeError(f"{label}: kernel path vs plain path {vs} "
@@ -1823,6 +1979,12 @@ def main() -> int:
                      f"{r16['decisions']} (plain paths {r16['plain_flips']};"
                      f" near-tie gaps <= {r16['max_gap_at_checked_flip']:.2e}"
                      f"), float32 {r32['flips']}")
+        if "kernel_vs_cached_chunked" in vs["bf16"]:
+            route += (f"; bf16 vs the plain paths on its own schedule "
+                      f"{vs['bf16']['kernel_vs_cached_chunked']:.5f} (floor "
+                      f"{vs['bf16']['cached_naive_vs_cached_chunked']:.5f}"
+                      f"), schedule vs full forward "
+                      f"{vs['bf16']['cached_chunked_vs_chunked']:.5f}")
         return (f"{st['arch']} ({st['n_layers']} layers) B{st['batch']} "
                 f"prompt {st['prompt']} +{st['new_tokens']}: prefill "
                 f"{st['prefill_ms']:.3f} ms, decode "
@@ -1855,6 +2017,30 @@ def main() -> int:
             "tokens": torch.from_numpy(tokens).to(dev),
             "positions": vlm_positions(SERVE_BATCH, SERVE_PROMPT)}, VLM_NEW)
         print(json.dumps({"serve_vlm": st}), flush=True)
+        return st, family_line(st)
+
+    @phase("serve_hybrid")
+    def serve_hybrid():
+        cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                                  n_layers=HYBRID_LAYERS)
+        tokens = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH,
+                             seed=7).batch(0)["tokens"]
+        st = serve_family("serve_hybrid", cfg,
+                          {"tokens": torch.from_numpy(tokens).to(dev)},
+                          SERVE_NEW, schedule_floor=True)
+        print(json.dumps({"serve_hybrid": st}), flush=True)
+        return st, family_line(st)
+
+    @phase("serve_encdec")
+    def serve_encdec():
+        cfg = get_config(ENCDEC_ARCH)
+        batch = make_batch(0, cfg, SERVE_BATCH, ENCDEC_PROMPT, "prefill",
+                           device=dev)
+        batch["tokens"] = torch.from_numpy(SyntheticLM(
+            cfg.vocab_size, ENCDEC_PROMPT, SERVE_BATCH,
+            seed=7).batch(0)["tokens"]).to(dev)
+        st = serve_family("serve_encdec", cfg, batch, SERVE_NEW)
+        print(json.dumps({"serve_encdec": st}), flush=True)
         return st, family_line(st)
 
     def sweep_json(spec, res):
@@ -3033,6 +3219,8 @@ def main() -> int:
     sim_stats = serve_sim(cap)
     moe_stats = serve_moe()
     vlm_stats = serve_vlm()
+    hybrid_stats = serve_hybrid()
+    encdec_stats = serve_encdec()
     fig_stats = figures()
     scale_stats = sweep_scale()
     bwd = attn_bwd_parity()
@@ -3058,14 +3246,15 @@ def main() -> int:
                      "rank axis 8",
             "grid_ms": stats["grid_kernel_ms"],
             "grid_launches": stats["launches"],
-            "grid_bucketed_ms": stats["grid_bucketed_ms"],
-            "grid_bucket_launches": stats["buckets"],
-            "grid_one_launch_ms": stats["grid_one_launch_ms"],
+            "retime_cells": stats["retime_cells"],
+            "retime_bucketed_ms": stats["retime_bucketed_ms"],
+            "retime_bucket_launches": len(stats["retime_bucket_ms"]),
+            "retime_one_launch_ms": stats["retime_one_launch_ms"],
             "grid_us_per_cycle": stats["us_per_cycle"],
             "grid_us_per_cycle_run": stats["us_per_cycle_run"],
             "serve_sim_launches": sim_stats["launches"],
             "serve_sim_kernel_ms": sim_stats["kernel_ms"],
-            "serve_sim_bucketed_ms": sim_stats["bucketed_kernel_ms"],
+            "serve_sim_retime_bucketed_ms": sim_stats["retime_bucketed_ms"],
             "serve_sim_us_per_cycle": sim_stats["us_per_cycle"],
             "figures_launches": fig_stats["launches"],
             "figures_cells": fig_stats["cells"],
@@ -3080,12 +3269,17 @@ def main() -> int:
             "launches": serve_stats["launches"]["flash"],
             "serve_moe_launches": moe_stats["launches"]["flash"],
             "serve_vlm_launches": vlm_stats["launches"]["flash"],
+            "serve_hybrid_launches": hybrid_stats["launches"]["flash"],
+            "serve_encdec_launches": encdec_stats["launches"]["flash"],
             "train_launches": train_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
             "train_shape_bound_ms": bwd["fwd_bound_ms"],
             "train_shape_library_ms": bwd["fwd_library_ms"],
+            "hd112": dict(attn["flash_hd112"],
+                          shape="q/k/v (8,256,32,112) bf16, causal "
+                                "(serve_hybrid's prefill)"),
             "check": "ok"}, {
             "name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
@@ -3104,8 +3298,13 @@ def main() -> int:
             "launches": serve_stats["launches"]["decode"],
             "serve_moe_launches": moe_stats["launches"]["decode"],
             "serve_vlm_launches": vlm_stats["launches"]["decode"],
+            "serve_hybrid_launches": hybrid_stats["launches"]["decode"],
+            "serve_encdec_launches": encdec_stats["launches"]["decode"],
             "max_abs_err": attn_err["decode"], **attn["decode"],
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
+            "hd112": dict(attn["decode_hd112"],
+                          shape="q (8,1,32,112), caches (8,512,32,112) "
+                                "bf16, lengths 288 (serve_hybrid's step)"),
             "check": "ok"}, {
             "name": "decode_attention_combine", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -3113,6 +3312,10 @@ def main() -> int:
             "launches": serve_stats["launches"]["decode_combine"],
             "serve_moe_launches": moe_stats["launches"]["decode_combine"],
             "serve_vlm_launches": vlm_stats["launches"]["decode_combine"],
+            "serve_hybrid_launches":
+                hybrid_stats["launches"]["decode_combine"],
+            "serve_encdec_launches":
+                encdec_stats["launches"]["decode_combine"],
             "max_abs_err": 0.0, **attn["combine"],
             "shape": f"partials of {attn['decode']['splits']} splits of the "
                      f"decode shape, float32 -> o bf16",

@@ -15,7 +15,9 @@
 // Tiles hold rows of hd bf16, swizzled as wgmma's descriptors read them:
 // 128-byte rows (hd 64) swizzle their 16-byte chunks over 8 rows, 64-byte
 // rows (hd 32) over 4 pairs of rows, 32-byte rows (hd 16) over 2 quads;
-// hd 128 is two 64-column atoms, one after the other.  One tile serves as
+// hd 128 is two 64-column atoms, one after the other.  hd 112 (1.75
+// atoms) takes a tile of 128 columns (`tile_cols`): its last 16 columns
+// are zero-filled on load and never stored.  One tile serves as
 // a K-major operand (its rows along M or N, its columns along K: Q K^T)
 // and, through a second descriptor, as an MN-major one (its rows along K,
 // its columns along N: P V).  Tile bases are 1024-byte aligned.
@@ -117,15 +119,23 @@ __device__ __forceinline__ void to_a(uint32_t (&af)[N / 16][4],
   }
 }
 
+//! columns of a tile that holds rows of hd bf16: hd for the head dims
+//! that whole swizzle atoms tile (16, 32, 64, 128), else hd rounded up
+//! to whole 64-column atoms (112 -> 128)
+__host__ __device__ constexpr int tile_cols(int hd) {
+  return hd <= 64 ? hd : (hd + 63) / 64 * 64;
+}
+
 //! this lane's share of a 64 x N accumulator, row g of the warp's 16
 //! times mul0 and row g + 8 times mul1, as bf16 into rows row0 + g (+ 8)
 //! of a (B, S, H, hd) tensor at `dst` (its (b, 0, h, 0)), rows `rs`
-//! apart; rows at or past S are skipped
-template <int N>
+//! apart, its first NV columns (hd); rows at or past S are skipped
+template <int N, int NV = N>
 __device__ __forceinline__ void store_rows(bf16* dst, long long rs, int row0,
                                            int S, const float (&acc)[N / 8][4],
                                            float mul0, float mul1,
                                            int lane) {
+  static_assert(NV % 8 == 0 && NV <= N, "whole 8-column groups");
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -134,7 +144,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long rs, int row0,
     const float m = half ? mul1 : mul0;
     bf16* p = dst + row * rs + 2 * t;
 #pragma unroll
-    for (int n = 0; n < N / 8; ++n)
+    for (int n = 0; n < NV / 8; ++n)
       *reinterpret_cast<uint32_t*>(p + 8 * n) =
           pack_bf16(acc[n][2 * half] * m, acc[n][2 * half + 1] * m);
   }
@@ -155,24 +165,27 @@ struct Tile {
   }
 };
 
-//! rows [s0, s0 + R) of one head of a (B, S, H, HD) bf16 tensor (`src`
+//! rows [s0, s0 + R) of one head of a (B, S, H, HV) bf16 tensor (`src`
 //! points at its (b, 0, h, 0), rows `rs` elements apart) into a swizzled
-//! tile at `dst`; rows past S are zero-filled.  Asynchronous: all NT
-//! threads call it, then commit and wait.
-template <int R, int HD, int NT>
+//! tile of HD columns at `dst`; rows past S, and columns HV .. HD - 1,
+//! are zero-filled.  Asynchronous: all NT threads call it, then commit
+//! and wait.
+template <int R, int HD, int NT, int HV = HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long rs, int s0, int S,
                                           int tid) {
   using L = Tile<HD>;
   constexpr int CH = HD / 8;       // 16-byte chunks per row
   constexpr int CA = L::AW / 8;    // of them per atom
+  constexpr int CV = HV / 8;       // of them holding data
+  static_assert(HV % 8 == 0 && HV <= HD, "whole 16-byte chunks");
 #pragma unroll
   for (int i = 0; i < (R * CH + NT - 1) / NT; ++i) {
     const int idx = tid + i * NT;
     if ((R * CH) % NT == 0 || idx < R * CH) {
       const int r = idx / CH, c = idx % CH;
       const int s = s0 + r;
-      const bool in = s < S;
+      const bool in = s < S && c < CV;
       bf16* d = dst + (c / CA) * R * L::AW + r * L::AW +
                 L::chunk(r, c % CA) * 8;
       cp_async16(d, in ? src + s * rs + c * 8 : src, in ? 16 : 0);

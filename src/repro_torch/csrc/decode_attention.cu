@@ -25,8 +25,11 @@
 //   * the cache is read in place in the model's (B, Smax, Hkv, hd) layout
 //     with 16-byte loads (8 bf16 or 4 float32 per thread; neighbouring
 //     threads on neighbouring 16 bytes of a row) into an unpadded tile;
-//     K's 16-byte units are XOR-swizzled by row, so the lanes of a warp,
-//     one row each, read without bank conflicts;
+//     K's 16-byte units are XOR-swizzled by row within whole groups of 8
+//     units (of all of a row's units below 8), so the lanes of a warp,
+//     one row each, read without bank conflicts; a row of hd 112 (14
+//     bf16 or 28 float32 units, zamba2-7b's shared attention) keeps its
+//     last 6 or 4 units in place;
 //   * a warp takes a q head: its lanes hold two rows' scores each, the
 //     softmax max and sum are warp shuffles, and P reaches the PV product
 //     by shuffles, not through shared memory;
@@ -92,6 +95,17 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// Where unit c of row j of a K tile lies in its row (CPR units of 16
+// bytes a row): XOR-swizzled by the row within whole groups of 8 units
+// (all CPR when CPR < 8, a power of two); the units past the last whole
+// group (hd 112: 6 of 14 bf16 units, 4 of 28 float32) stay in place.
+template <int CPR>
+__device__ __forceinline__ int swizzled(int j, int c) {
+  constexpr int SWW = CPR < 8 ? CPR : 8;  // units one swizzle permutes
+  constexpr int SWC = CPR - CPR % SWW;    // units that are swizzled
+  return c < SWC ? c ^ (j & (SWW - 1)) : c;
+}
+
 template <typename C, int HD>
 size_t smem_bytes(int G) {
   // K and V tiles (BK x HD cache elements), Q and acc (G x HD), m, l (G)
@@ -108,8 +122,7 @@ __global__ void __launch_bounds__(NT)
   using V = Vec16<C>;
   constexpr int EPV = V::N;            // cache elements per 16 bytes
   constexpr int CPR = HD / EPV;        // 16-byte units per row
-  constexpr int SWZ = CPR < 8 ? CPR - 1 : 7;
-  constexpr int DPL = HD < 32 ? 1 : HD / 32;  // PV outputs per lane
+  constexpr int DPL = (HD + 31) / 32;        // PV outputs per lane
   extern __shared__ uint4 smem_u4[];
   uint4* Ks = smem_u4;
   uint4* Vs4 = Ks + BK * CPR;
@@ -157,7 +170,7 @@ __global__ void __launch_bounds__(NT)
       for (int idx = tid; idx < n * CPR; idx += NT) {
         const int j = idx / CPR, c = idx % CPR;
         const long long row = p0 + j;
-        Ks[j * CPR + (c ^ (j & SWZ))] =
+        Ks[j * CPR + swizzled<CPR>(j, c)] =
             *reinterpret_cast<const uint4*>(kb + row * sk.s + c * EPV);
         Vs4[j * CPR + c] =
             *reinterpret_cast<const uint4*>(vb + row * sv.s + c * EPV);
@@ -174,7 +187,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
             for (int c = 0; c < CPR; ++c) {
               float kv[EPV];
-              V::unpack(Ks[j * CPR + (c ^ (j & SWZ))], kv);
+              V::unpack(Ks[j * CPR + swizzled<CPR>(j, c)], kv);
 #pragma unroll
               for (int e = 0; e < EPV; ++e)
                 dot[e & 1] += qg[c * EPV + e] * kv[e];
@@ -327,6 +340,7 @@ cudaError_t launch_hd(int hd, const Args& a) {
     case 16: return launch<T, C, 16>(a);
     case 32: return launch<T, C, 32>(a);
     case 64: return launch<T, C, 64>(a);
+    case 112: return launch<T, C, 112>(a);
     case 128: return launch<T, C, 128>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -345,6 +359,7 @@ size_t smem_hd(int hd, int G) {
     case 16: return smem_bytes<C, 16>(G);
     case 32: return smem_bytes<C, 32>(G);
     case 64: return smem_bytes<C, 64>(G);
+    case 112: return smem_bytes<C, 112>(G);
     case 128: return smem_bytes<C, 128>(G);
     default: return 0;
   }

@@ -189,6 +189,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<float, 64>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
                                scale, s);
+    case 112:  // zamba2-7b's shared attention
+      return launch<float, 112>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
+                                scale, s);
     case 128:
       return launch<float, 128>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal,
                                 scale, s);

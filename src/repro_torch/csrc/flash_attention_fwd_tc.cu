@@ -36,6 +36,14 @@
 // which must be multiples of 8 elements with 16-byte-aligned bases (the
 // wrapper checks).  The kv head of q head h is h / (Hq / Hkv).  Rows past
 // S load as zeros and their scores as NEG_INF: any S is right.
+//
+// Head dims 16, 32, 64 and 128 fill whole swizzle atoms.  hd 112
+// (zamba2-7b's shared attention) keeps tiles of 128 columns in shared
+// memory (tc::tile_cols), the last 16 zero-filled on load: Q K^T runs the
+// 7 k-steps that hold data, O += P V runs at n = 128 (the instruction and
+// MN-major descriptor of hd 128, whose atoms are whole), and only the
+// first 112 columns of o are stored.  The scale stays 1/sqrt(112) (the
+// wrapper's).
 #include "attention_tc.cuh"
 
 namespace {
@@ -50,7 +58,7 @@ constexpr int STAGES = 3;    // k/v ring: tiles t+1, t+2 load while t computes
 template <int HD>
 constexpr size_t smem_bytes() {
   // alignment slack; Q; per stage K and V, swizzled tiles of R rows
-  return 1024 + sizeof(bf16) * R * HD * (1 + 2 * STAGES);
+  return 1024 + sizeof(bf16) * R * tc::tile_cols(HD) * (1 + 2 * STAGES);
 }
 
 template <int HD>
@@ -60,7 +68,8 @@ __global__ void __launch_bounds__(128)
                         float* __restrict__ lse, Strides sq, Strides sk,
                         Strides sv, Strides so, int S, int Hq, int n_bh,
                         int group, int causal, float scale_log2) {
-  constexpr int T = R * HD;  // bf16 of one tile
+  constexpr int HP = tc::tile_cols(HD);  // columns of a tile
+  constexpr int T = R * HP;               // bf16 of one tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = tc::smem_u32(smem_raw);
   bf16* Qs =
@@ -84,16 +93,17 @@ __global__ void __launch_bounds__(128)
   auto load_kv = [&](int kt) {  // one commit group per tile, even empty
     if (kt < n_kv) {
       bf16* dst = Ks + 2 * (kt % STAGES) * T;
-      tc::load_rows<R, HD, 128>(dst, kb, sk.s, kt * R, S, tid);
-      tc::load_rows<R, HD, 128>(dst + T, vb, sv.s, kt * R, S, tid);
+      tc::load_rows<R, HP, 128, HD>(dst, kb, sk.s, kt * R, S, tid);
+      tc::load_rows<R, HP, 128, HD>(dst + T, vb, sv.s, kt * R, S, tid);
     }
     tc::cp_async_commit();
   };
-  tc::load_rows<R, HD, 128>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  tc::load_rows<R, HP, 128, HD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S,
+                                tid);
 #pragma unroll
   for (int kt = 0; kt < STAGES - 1; ++kt) load_kv(kt);
 
-  float acc[HD / 8][4];
+  float acc[HP / 8][4];
   tc::zero(acc);
   // running max (of the scores times log2(e) / sqrt(hd)) and this lane's
   // share of the row sums, rows g and g + 8 of the warp's 16
@@ -113,7 +123,7 @@ __global__ void __launch_bounds__(128)
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)  // S = Q K^T, 16 of hd at a time
-      tc::mma_ss(s, tc::kdesc<HD, R>(Qs, kk), tc::kdesc<HD, R>(Kt, kk), kk);
+      tc::mma_ss(s, tc::kdesc<HP, R>(Qs, kk), tc::kdesc<HP, R>(Kt, kk), kk);
     tc::wg_commit();
     tc::wg_wait();
     tc::fence_acc(s);
@@ -142,7 +152,7 @@ __global__ void __launch_bounds__(128)
       m[hf] = x;
       l[hf] *= alpha;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < HP / 8; ++n) {
         acc[n][2 * hf] *= alpha;
         acc[n][2 * hf + 1] *= alpha;
       }
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(128)
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)  // O += P V, kv rows 16 kk .. 16 kk + 15
-      tc::mma_rs<HD>(acc, pf[kk], tc::mndesc<HD, R>(Kt + T, kk), 1);
+      tc::mma_rs<HP>(acc, pf[kk], tc::mndesc<HP, R>(Kt + T, kk), 1);
     tc::wg_commit();
     tc::wg_wait();
     tc::fence_acc(acc);
@@ -177,8 +187,8 @@ __global__ void __launch_bounds__(128)
     l[hf] = fmaxf(x, 1e-30f);
     inv[hf] = 1.f / l[hf];
   }
-  tc::store_rows<HD>(o + b * so.b + h * so.h, so.s, r0, S, acc, inv[0],
-                     inv[1], lane);
+  tc::store_rows<HP, HD>(o + b * so.b + h * so.h, so.s, r0, S, acc, inv[0],
+                         inv[1], lane);
   if (t == 0) {
     float* lrow = lse + ((long long)b * Hq + h) * S;
 #pragma unroll
@@ -234,6 +244,9 @@ int flash_attention_fwd_tc_launch(const void* q, const void* k,
       return launch<32>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal, scale, s);
     case 64:
       return launch<64>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal, scale, s);
+    case 112:
+      return launch<112>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal, scale,
+                         s);
     case 128:
       return launch<128>(q, k, v, o, lse, st, B, S, Hq, Hkv, causal, scale,
                          s);

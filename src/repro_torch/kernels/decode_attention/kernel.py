@@ -14,7 +14,8 @@ that.
 
 Build: route (b) (`repro_torch._build`), at first use.  The wrapper
 checks device, dtypes (float32, bfloat16 for q; float32, bfloat16 for
-the caches), head dim (16, 32, 64, 128), strides, 16-byte alignment of
+the caches), head dim (16, 32, 64, 112, 128: 112 is zamba2-7b's shared
+attention), strides, 16-byte alignment of
 the caches and the block's shared memory once per input layout (the
 serving path calls it with one layout over and over, and at its shape
 the host's time per call is what a decode step waits for), allocates the
@@ -39,7 +40,7 @@ from repro_torch._build import (NVCC_FLAGS, bind, compile_library, nvcc,
                                 on_device, stream_ptr)
 
 KERNEL_SOURCES = ("attention_common.cuh", "decode_attention.cu")
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: shared memory one block may use on Hopper (bytes)
 MAX_SMEM = 232448
@@ -85,6 +86,13 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_head_dim(hd: int) -> None:
+    """Raise unless the kernels are built for head dim `hd`."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+
+
 def check_inputs(q, k_cache, v_cache, lengths) -> None:
     """Raise unless q (B,1,Hq,hd), caches (B,Smax,Hkv,hd) and lengths (B,)
     int32 are CUDA tensors of one device the kernel takes."""
@@ -112,9 +120,7 @@ def check_inputs(q, k_cache, v_cache, lengths) -> None:
     if hkv < 1 or hq % hkv:
         raise ValueError(f"decode_attention: Hq={hq} not a multiple of "
                          f"Hkv={hkv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    check_head_dim(hd)
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         if any(st * x.element_size() % ALIGN_BYTES for st in x.stride()[:3]):
             raise ValueError(f"decode_attention: {name} strides "

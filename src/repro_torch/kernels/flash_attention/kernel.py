@@ -23,9 +23,14 @@ are deterministic (no atomics).  Any S is right: ragged last tiles are
 masked.  The kernels' sources say what bounds them and what their design
 does about that.
 
+Head dims: the forward takes 16, 32, 64, 112 and 128 (112: zamba2-7b's
+shared attention; the bf16 kernel keeps its tiles 128 columns wide in
+shared memory, the last 16 zero-filled), the backward 16, 32, 64 and 128
+(112 waits for the training slice of the hybrid family).
+
 Build: route (b) (`repro_torch._build`), at first use, one library for
 each direction and dtype.  The wrappers check device, dtype, head dim
-(16, 32, 64, 128) and strides (bf16: 16-byte-aligned bases, strides a
+and strides (bf16: 16-byte-aligned bases, strides a
 multiple of 8, as the kernels' 16-byte loads need), allocate the outputs
 with ``torch.empty``, launch on PyTorch's current stream and raise if a
 launch fails.  ``flash_attention_fwd.launches`` and
@@ -51,7 +56,9 @@ TC_SOURCES = ("attention_common.cuh", "attention_tc.cuh",
               "flash_attention_fwd_tc.cu")
 TC_BWD_SOURCES = ("attention_common.cuh", "attention_tc.cuh",
                   "flash_attention_bwd_tc.cu")
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims each direction's kernels are built for
+FWD_HEAD_DIMS = (16, 32, 64, 112, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 #: the kernels of each dtype: bf16 on the tensor cores, float32 on the
 #: CUDA cores
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
@@ -110,10 +117,20 @@ def build_bwd_tc() -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(q, k, v, who: str = "flash_attention_fwd", **more) -> None:
+def check_head_dim(hd: int, who: str, head_dims) -> None:
+    """Raise unless the kernels of `head_dims` are built for `hd`."""
+    if hd not in head_dims:
+        later = (" (the forward takes it; the backward comes with the "
+                 "hybrid family's training slice, ROADMAP)"
+                 if hd in FWD_HEAD_DIMS else "")
+        raise ValueError(f"{who}: head dim {hd} not in {head_dims}{later}")
+
+
+def check_inputs(q, k, v, who: str = "flash_attention_fwd",
+                 head_dims=FWD_HEAD_DIMS, **more) -> None:
     """Raise unless q (B,S,Hq,hd) and k, v (B,S,Hkv,hd) are CUDA tensors
     of one device and one dtype the kernel takes, with contiguous last
-    dims, Hq a multiple of Hkv and a head dim it is built for.  `more`
+    dims, Hq a multiple of Hkv and a head dim in `head_dims`.  `more`
     names further tensors of q's shape, device and dtype (the backward's
     o and do).  The bf16 kernels' alignment is checked with the strides
     (`_strides`)."""
@@ -139,8 +156,7 @@ def check_inputs(q, k, v, who: str = "flash_attention_fwd", **more) -> None:
     hkv = k.shape[2]
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{who}: Hq={hq} not a multiple of Hkv={hkv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{who}: head dim {hd} not in {HEAD_DIMS}")
+    check_head_dim(hd, who, head_dims)
     if min(b, s) < 1 or max(b, hq) > MAX_GRID_YZ:
         raise ValueError(f"{who}: B={b}, S={s}, Hq={hq} outside the "
                          f"kernel's grid")
@@ -231,7 +247,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     if do.stride(-1) != 1:
         do = do.contiguous()
     who = "flash_attention_bwd"
-    check_inputs(q, k, v, who, o=o, do=do)
+    check_inputs(q, k, v, who, BWD_HEAD_DIMS, o=o, do=do)
     b, s, hq, hd = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (b, hq, s) or not lse.is_contiguous()):

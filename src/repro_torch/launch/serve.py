@@ -9,8 +9,15 @@ Runs on ``cuda`` unless ``--device cpu`` is given, with
 (flash attention) and decode (flash-decode); on the CPU their plain
 versions.  (The reference launcher's ``"chunked"`` is an XLA path with no
 kernel.)  ``--arch rwkv6-3b`` serves RWKV-6, whose prefill and decode run
-no kernel, as in the reference.  ``--ckpt-dir`` serves the params of the latest checkpoint there
-(written by either package's ``train/checkpoint.py``).
+no kernel, as in the reference; ``--arch zamba2-7b`` the hybrid family
+(Mamba2 + the shared attention block, on both kernels at head dim 112),
+``--arch whisper-base`` the encoder-decoder (its decoder's self-attention
+on both kernels).  The batch is `models.make_batch`'s with the
+`SyntheticLM` prompts as its tokens, so whisper gets its frame embeddings
+``enc_embed``; the reference's launcher passes the tokens alone, which
+serves every family but encdec.  ``--ckpt-dir`` serves the params of the
+latest checkpoint there (written by either package's
+``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 
 from repro_torch.configs import ParallelConfig, get_config, reduce_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import make_batch
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.step import init_state
@@ -58,7 +66,8 @@ def main(argv=None) -> int:
                  params, device=args.device)
     data = SyntheticLM(cfg.vocab_size, args.prompt_len, args.requests,
                        seed=7)
-    batch = {"tokens": data.batch(0)["tokens"]}
+    batch = make_batch(0, cfg, args.requests, args.prompt_len, "prefill")
+    batch["tokens"] = torch.from_numpy(data.batch(0)["tokens"])
     t0 = time.perf_counter()
     out = eng.generate(batch, args.new_tokens)
     if eng.device.type == "cuda":

@@ -7,10 +7,10 @@ Every family module exposes the same functional API:
   init_cache(cfg, batch, max_seq, pcfg, device=...) -> cache
   prefill(params, batch, cache, cfg, pcfg) -> (cache, last_hidden (B,1,d))
   decode(params, tokens (B,1), cache, cfg, pcfg) -> (cache, logits (B,1,V))
-plus transformer.logits_fn for the LM head.  Ported so far: the
-transformer's three families (dense, VLM with M-RoPE, MoE) and RWKV6 (the
-ssm family); the hybrid (zamba) and encdec (whisper) families raise until
-their slice (ROADMAP Slice D).
+plus transformer.logits_fn for the LM head.  Every family of the
+reference is ported: the transformer's three (dense, VLM with M-RoPE,
+MoE), RWKV6 (ssm), Zamba2 (hybrid: Mamba2 + a shared attention block)
+and Whisper (encdec).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rwkv6, transformer, whisper, zamba
+from repro_torch.models.common import compute_dtype
 from repro_torch.models.transformer import logits_fn  # noqa: F401
 
 _FAMILY = {
@@ -26,14 +27,15 @@ _FAMILY = {
     "vlm": transformer,
     "moe": transformer,
     "ssm": rwkv6,
+    "hybrid": zamba,
+    "encdec": whisper,
 }
 
 
 def get_model(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Slice D)")
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r} "
+                         f"(want one of {sorted(_FAMILY)})")
     return _FAMILY[cfg.family]
 
 
@@ -44,22 +46,30 @@ def get_model(cfg: ModelConfig):
 
 def make_batch(seed: int, cfg: ModelConfig, batch: int, seq: int,
                kind: str = "train", device="cpu") -> dict[str, torch.Tensor]:
-    """Concrete random batch of int32 model inputs.
+    """Concrete random batch of model inputs.
 
     kind: train | prefill -> full-length tokens (+labels for train);
           decode           -> one token per sequence.
     The VLM family's full-length batches also carry M-RoPE ``positions``
-    (3, B, S): three equal streams 0..S-1, as the reference's.
-    Tokens and labels are drawn with numpy from ``(seed, 0)`` and
-    ``(seed, 1)``, so they are the same in every process (the reference
-    folds ``hash(name)`` into its key, which Python randomises per
-    process)."""
+    (3, B, S) int32: three equal streams 0..S-1, as the reference's; the
+    encdec family's carry the frame embeddings ``enc_embed`` (B,
+    enc_seq_len, d_model), 0.1 x standard normal in the compute dtype.
+    Tokens, labels and enc_embed are drawn with numpy from ``(seed, 0)``,
+    ``(seed, 1)`` and ``(seed, 2)``, so they are the same in every process
+    (the reference folds ``hash(name)`` into its key, which Python
+    randomises per process)."""
     shape = (batch, 1) if kind == "decode" else (batch, seq)
     names = ("tokens", "labels") if kind == "train" else ("tokens",)
-    out = {name: np.random.default_rng([seed, i]).integers(
-               0, cfg.vocab_size, shape, dtype=np.int32)
+    out = {name: torch.from_numpy(np.random.default_rng([seed, i]).integers(
+               0, cfg.vocab_size, shape, dtype=np.int32))
            for i, name in enumerate(names)}
-    if cfg.family == "vlm" and kind != "decode":
-        out["positions"] = np.broadcast_to(
-            np.arange(seq, dtype=np.int32), (3, batch, seq)).copy()
-    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    if kind != "decode":
+        if cfg.family == "vlm":
+            out["positions"] = torch.arange(seq, dtype=torch.int32).expand(
+                3, batch, seq).clone()
+        if cfg.family == "encdec":
+            enc = np.random.default_rng([seed, 2]).standard_normal(
+                (batch, cfg.enc_seq_len, cfg.d_model), dtype=np.float32)
+            out["enc_embed"] = (0.1 * torch.from_numpy(enc)).to(
+                compute_dtype(cfg))
+    return {k: v.to(device) for k, v in out.items()}

@@ -44,16 +44,17 @@ def _is_norm(path: str) -> bool:
     return "norm" in leaf or leaf in ("scale", "ln_x")
 
 
-#: leaves the models read in float32 besides the norms: RWKV6's bonus u
-#: and the MoE router (the reference routes in float32)
-_FLOAT32_LEAVES = ("bonus", "router")
+#: leaves the models read in float32 besides the norms: RWKV6's bonus u,
+#: the MoE router (the reference routes in float32) and Mamba2's A_log, D
+#: and dt_bias (the reference reads them with ``.astype(float32)``)
+_FLOAT32_LEAVES = ("bonus", "router", "A_log", "D", "dt_bias")
 
 
 def cast_weights(params: Params, cfg, device=None) -> Params:
     """The tree on `device` (default: where it is) with every weight the
     model casts at use (projections, MLP and experts, token-shift mixes,
-    embedding table, head) already in the compute dtype; norm scales,
-    RWKV6's bonus and the MoE router, which the models read in float32,
+    Mamba2's conv, embedding table, head) already in the compute dtype;
+    norm scales and `_FLOAT32_LEAVES`, which the models read in float32,
     stay float32."""
     tree: dict = {}
     for path, leaf in flatten_paths(params).items():
@@ -99,18 +100,25 @@ def init_embed(gen, shape, device) -> torch.Tensor:
 def init_from_shapes(gen: torch.Generator, shapes: dict[str, tuple[int, ...]],
                      device="cuda") -> Params:
     """Build a nested param dict from a flat {dotted.path: shape} table,
-    with the reference's distributions: ones for norms, 0.5 for RWKV6's
-    token-shift mixes (``mu``) and bonus, 0.02 x truncated normal for the
-    embedding, fan-in truncated normal for dense weights.  `gen` draws on
-    `device`.  (The families this package ports use no other leaf kinds.)
-    JAX's random bits cannot be reproduced, so parity tests load the
-    reference's params (`convert`)."""
+    with the reference's distributions: ones for norms and Mamba2's D,
+    log U[1, 16] for its A_log, softplus^-1 of exp U[log 1e-3, log 1e-1]
+    for its dt_bias, 0.5 for RWKV6's token-shift mixes (``mu``) and bonus,
+    0.02 x truncated normal for the embedding, fan-in truncated normal for
+    dense weights.  `gen` draws on `device`.  JAX's random bits cannot be
+    reproduced, so parity tests load the reference's params (`convert`)."""
     dev = check_device(device)
     tree: dict = {}
     for path, shape in sorted(shapes.items()):
         leaf_name = path.split(".")[-1]
-        if _is_norm(path):
+        if _is_norm(path) or leaf_name == "D":
             val = torch.ones(shape, dtype=PARAM_DTYPE, device=dev)
+        elif leaf_name == "A_log":
+            val = torch.empty(shape, dtype=PARAM_DTYPE, device=dev).uniform_(
+                1.0, 16.0, generator=gen).log_()
+        elif leaf_name == "dt_bias":
+            dt = torch.empty(shape, dtype=PARAM_DTYPE, device=dev).uniform_(
+                math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+            val = dt + torch.log(-torch.expm1(-dt))
         elif leaf_name in ("mu", "bonus"):
             val = torch.full(shape, 0.5, dtype=PARAM_DTYPE, device=dev)
         elif leaf_name == "tokens" or path.startswith("embed"):
@@ -180,6 +188,29 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = x.square().mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * scale.float()).to(dt)
+
+
+def layer_norm(x, scale, eps: float = 1e-5):
+    """Scale-only layer norm in float32, in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dt)
+
+
+def sinusoidal_positions(seq: int, dim: int, offset: int = 0,
+                         device="cpu") -> torch.Tensor:
+    """(seq, dim) float32 sinusoidal absolute positions (whisper-style):
+    sin of the first dim/2 bands, then cos."""
+    pos = torch.arange(seq, device=device)[:, None] + offset
+    half = dim // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+    ang = pos.float() * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def matmul(x, w):

@@ -1,0 +1,131 @@
+"""Mamba2 (SSD) core ops: causal depthwise conv + chunked selective scan
+(port of ``repro/models/mamba2.py``).
+
+Recurrence per head h (P = head_dim, N = state_dim):
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t        (A < 0 scalar per head)
+    y_t = h_t C_t + D x_t
+
+B_t, C_t are shared across the heads of a group (n_groups).  The chunked
+(SSD) evaluation computes intra-chunk contributions with a (c, c) per-head
+decay matrix (all exponents <= 0) and carries the (P, N) state across
+chunks: mathematically the sequential scan.  Plain PyTorch, as the
+reference is plain JAX: it has no kernel for the SSD.  The reference's
+``lax.scan`` over steps and chunks is a Python loop here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
+
+
+def causal_conv(x, w, conv_state=None):
+    """Depthwise causal conv.  x (B,S,ch); w (width,ch); conv_state
+    (B,width-1,ch) carries the last inputs.  Returns (silu(y), state), the
+    state the last width-1 inputs in x's dtype."""
+    b, s, ch = x.shape
+    width = w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((b, width - 1, ch), dtype=x.dtype,
+                                 device=x.device)
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + s] * w[i][None, None] for i in range(width))
+    return F.silu(y), xp[:, -(width - 1):]
+
+
+def _expand_groups(m, heads: int):
+    """(B,S,G,N) -> (B,S,H,N) by repeating each group over its heads."""
+    return torch.repeat_interleave(m, heads // m.shape[2], dim=2)
+
+
+def ssd_sequential(x, dt, la, Bm, Cm, state):
+    """x (B,S,H,P); dt/la (B,S,H); Bm/Cm (B,S,H,N); state (B,H,P,N).
+    Returns (state, y (B,S,H,P))."""
+    h = state
+    ys = []
+    for t in range(x.shape[1]):
+        h = (h * torch.exp(la[:, t])[..., None, None]
+             + torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t, :, None],
+                            Bm[:, t]))
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cm[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def ssd_chunked(x, dt, la, Bm, Cm, state, chunk: int = 128):
+    """Chunked SSD; equal (up to float rounding) to `ssd_sequential`.  A
+    length that is not a multiple of min(chunk, S) takes the sequential
+    scan, as in the reference."""
+    b, s, h, p = x.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        return ssd_sequential(x, dt, la, Bm, Cm, state)
+    st = state.float()
+    idx = torch.arange(c, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    ys = []
+    for i0 in range(0, s, c):
+        xc, dtc, lac, bc, cc = (a[:, i0:i0 + c].float()
+                                for a in (x, dt, la, Bm, Cm))
+        scum = torch.cumsum(lac, dim=1)                # (B,c,H) inclusive
+        # intra: decay(i,j) = exp(s_i - s_j), j <= i
+        diff = scum[:, :, None] - scum[:, None, :]     # (B,ci,cj,H)
+        dec = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        cbm = torch.einsum("bihn,bjhn->bijh", cc, bc)  # (B,ci,cj,H)
+        m = cbm * dec * dtc[:, None]                   # dt_j on axis cj
+        y = torch.einsum("bijh,bjhp->bihp", m, xc)
+        # inter: exp(s_i) C_i · h_prev
+        y = y + (torch.einsum("bihn,bhpn->bihp", cc, st)
+                 * torch.exp(scum)[..., None])
+        # state update
+        s_last = scum[:, -1]                           # (B,H)
+        w = dtc * torch.exp(s_last[:, None] - scum)    # (B,c,H)
+        st = (st * torch.exp(s_last)[..., None, None]
+              + torch.einsum("bjhp,bjhn->bhpn", xc * w[..., None], bc))
+        ys.append(y)
+    return st, torch.cat(ys, dim=1).to(x.dtype)
+
+
+def mamba_block(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
+                chunked: bool = True):
+    """One mamba2 mixer.  x (B,S,d) -> (out, new_conv_state, new_ssm_state):
+    the conv state in x's dtype, the SSM state float32.
+
+    p: w_in (d, 2*d_in + 2*G*N + H), conv (w, d_in+2GN), A_log/D/dt_bias (H,),
+    norm (d_in,), w_out (d_in, d).
+    """
+    b, s, d = x.shape
+    ssm = cfg.ssm
+    h_heads, n, g = ssm.n_ssm_heads, ssm.state_dim, ssm.n_groups
+    d_in = 2 * d
+    p_head = d_in // h_heads
+
+    proj = cm.matmul(x, cm.cast(p["w_in"], cfg))
+    z = proj[..., :d_in]
+    xbc = proj[..., d_in:d_in + d_in + 2 * g * n]
+    dt_raw = proj[..., -h_heads:]
+
+    xbc, conv_state = causal_conv(xbc, cm.cast(p["conv"], cfg), conv_state)
+    x_in = xbc[..., :d_in].reshape(b, s, h_heads, p_head)
+    bm = _expand_groups(xbc[..., d_in:d_in + g * n].reshape(b, s, g, n),
+                        h_heads)
+    cmx = _expand_groups(xbc[..., d_in + g * n:].reshape(b, s, g, n),
+                         h_heads)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    a = -torch.exp(p["A_log"].float())                 # (H,) < 0
+    la = dt * a                                        # log decay <= 0
+
+    if ssm_state is None:
+        ssm_state = torch.zeros((b, h_heads, p_head, n), dtype=torch.float32,
+                                device=x.device)
+    ssd = ssd_chunked if chunked else ssd_sequential
+    ssm_state, y = ssd(x_in.float(), dt, la, bm.float(), cmx.float(),
+                       ssm_state)
+    y = y + p["D"].float()[None, None, :, None] * x_in.float()
+    y = y.reshape(b, s, d_in)
+    y = cm.rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps)
+    out = cm.matmul(y.to(x.dtype), cm.cast(p["w_out"], cfg))
+    return out, conv_state, ssm_state

@@ -59,26 +59,39 @@ def init(gen, cfg: ModelConfig, device="cuda"):
 
 
 def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
-                    *, cache: Optional[tuple] = None):
-    """Pre-norm causal attention with optional KV cache.
+                    *, causal: bool = True, cache: Optional[tuple] = None,
+                    kv_override: Optional[tuple] = None):
+    """Pre-norm attention with optional KV cache (shared with whisper and
+    zamba).
 
     p: dict with wq, wk, wv, wo (+ q_norm/k_norm) — no leading layer dim.
     cache: (k_cache, v_cache, pos, lengths) of one layer; the new K/V are
     written into k_cache/v_cache at [pos, pos+S) in place.
+    kv_override: (k, v) already projected (whisper's cross-attention): used
+    as given, no k_norm, no position embedding.
     Returns attn_out.
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     q = cm.matmul(x, cm.cast(p["wq"], cfg)).reshape(b, s, cfg.n_heads, hd)
-    k = cm.matmul(x, cm.cast(p["wk"], cfg)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = cm.matmul(x, cm.cast(p["wv"], cfg)).reshape(b, s, cfg.n_kv_heads, hd)
+    if kv_override is None:
+        k = cm.matmul(x, cm.cast(p["wk"], cfg)).reshape(b, s, cfg.n_kv_heads,
+                                                        hd)
+        v = cm.matmul(x, cm.cast(p["wv"], cfg)).reshape(b, s, cfg.n_kv_heads,
+                                                        hd)
+    else:
+        k, v = kv_override
 
     if cfg.qk_norm:
         q = cm.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = cm.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if kv_override is None:
+            k = cm.rms_norm(k, p["k_norm"], cfg.norm_eps)
 
-    qr, kr = att.position_embed(q, k, positions, cfg.rope_type,
-                                cfg.rope_theta)
+    if kv_override is None:
+        qr, kr = att.position_embed(q, k, positions, cfg.rope_type,
+                                    cfg.rope_theta)
+    else:
+        qr, kr = q, k
 
     if cache is not None:
         k_cache, v_cache, pos, lengths = cache
@@ -94,10 +107,10 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
             else:
                 out = att.decode_attend(qr, k_cache, v_cache, lengths)
         else:       # prefill: attend within the freshly written prefix
-            out = att.attend(qr, kr, v, causal=True, impl=pcfg.attn_impl,
+            out = att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
                              chunk=pcfg.attn_chunk)
     else:
-        out = att.attend(qr, kr, v, causal=True, impl=pcfg.attn_impl,
+        out = att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
                          chunk=pcfg.attn_chunk)
 
     out = out.reshape(b, s, cfg.n_heads * hd)

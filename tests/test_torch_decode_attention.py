@@ -1,8 +1,9 @@
 """The port's flash-decode (plain version `ref.decode_attend`, and `ops`
 in the model layout on the CPU) against the reference's plain version and
-its Pallas kernel in interpret mode, float32, same numpy inputs, with
-lengths that skip whole chunks: atol 1e-5 (sums in a different order).
-On the CPU the port's wrapper runs the plain version; its CUDA kernels
+its Pallas kernel in interpret mode, float32, same numpy inputs (head dim
+112, zamba2-7b's, among them), with lengths that skip whole chunks: atol
+1e-5 (sums in a different order).  On the CPU the port's wrapper runs
+the plain version; its CUDA kernels
 run only in ``chip_smoke.py``, which holds them against these plain
 versions.  The split-KV arithmetic (`ref.split_partials`, whose merge
 `ref.combine_splits` follows the combine kernel step for step) is held
@@ -49,7 +50,8 @@ def _port(q, k, v, lens):
 
 
 # lengths 1 and 200 skip the second (and first) 256-row chunk entirely
-@pytest.mark.parametrize("hkv,g,hd", [(2, 2, 16), (1, 4, 32), (2, 1, 64)])
+@pytest.mark.parametrize("hkv,g,hd", [(2, 2, 16), (1, 4, 32), (2, 1, 64),
+                                      (2, 1, 112)])
 def test_ref_matches_reference(hkv, g, hd):
     args = _inputs(hd + g, 3, hkv, g, 512, hd, [512, 1, 200])
     want_ref = np.asarray(RR.decode_attend(*map(jnp.asarray, args)))
@@ -60,11 +62,12 @@ def test_ref_matches_reference(hkv, g, hd):
     np.testing.assert_allclose(got, want_kernel, rtol=0, atol=ATOL)
 
 
-def test_smax_not_a_chunk_multiple_against_reference_ref():
+@pytest.mark.parametrize("hd", [32, 112])
+def test_smax_not_a_chunk_multiple_against_reference_ref(hd):
     """Smax = 300.  Held against the reference's ref.py only: its Pallas
     kernel reads n_kv = 300 // 256 = 1 chunk (kernel.py:73-74) and drops
     positions 256-299 of a lane whose length is 300."""
-    args = _inputs(11, 2, 2, 2, 300, 32, [300, 257])
+    args = _inputs(11, 2, 2, 2, 300, hd, [300, 257])
     got = _port(*args)
     np.testing.assert_allclose(
         got, np.asarray(RR.decode_attend(*map(jnp.asarray, args))),
@@ -94,6 +97,16 @@ def test_garbage_past_lengths_changes_nothing():
         k2[b, :, n:] = 1e4
         v2[b, :, n:] = -1e4
     np.testing.assert_array_equal(_port(q, k2, v2, lens), base)
+
+
+def test_head_dims():
+    """The kernels are built for head dim 112 (zamba2-7b's shared
+    attention) beside the powers of two, and for no other."""
+    assert PK.HEAD_DIMS == (16, 32, 64, 112, 128)
+    for hd in PK.HEAD_DIMS:
+        PK.check_head_dim(hd)
+    with pytest.raises(ValueError, match="head dim 96"):
+        PK.check_head_dim(96)
 
 
 def test_kernel_wrapper_raises_on_cpu_tensors():

@@ -1,7 +1,8 @@
 """The port's flash attention (plain version `ref.attention`, and `ops`
 in the model layout on the CPU) against the reference's plain version and
-against its Pallas kernel in interpret mode, float32, same numpy inputs:
-`o` and `lse` to atol 1e-5 (sums in a different order).  On the CPU the
+against its Pallas kernel in interpret mode, float32, same numpy inputs,
+head dim 112 (zamba2-7b's) among them: `o` and `lse` to atol 1e-5 (sums
+in a different order).  On the CPU the
 port's wrapper runs the plain version; its CUDA kernel runs only in
 ``chip_smoke.py``, which holds it against this plain version."""
 import numpy as np
@@ -66,6 +67,36 @@ def test_ragged_length_against_reference_ref(causal):
     q, k, v = _qkv(192, 2, 8, 2, 192, 32)
     _close(_port(q, k, v, causal),
            RR.attention(*map(jnp.asarray, (q, k, v)), causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_112_against_reference(causal):
+    """zamba2-7b's head dim: the plain version against the reference's
+    Pallas kernel in interpret mode (S a multiple of its tiles) and its
+    ref.py (S 192, ragged at 128-row tiles)."""
+    q, k, v = _qkv(112, 2, 4, 2, 128, 112)
+    _close(_port(q, k, v, causal),
+           RK.flash_attention_fwd(*map(jnp.asarray, (q, k, v)),
+                                  causal=causal, bq=64, bk=64,
+                                  interpret=True))
+    q, k, v = _qkv(113, 1, 4, 4, 192, 112)
+    _close(_port(q, k, v, causal),
+           RR.attention(*map(jnp.asarray, (q, k, v)), causal=causal))
+
+
+def test_head_dims_of_each_direction():
+    """The forward's kernels take head dim 112, the backward's refuse it
+    (naming the later slice), and neither takes a dim it is not built
+    for."""
+    assert PK.FWD_HEAD_DIMS == (16, 32, 64, 112, 128)
+    assert PK.BWD_HEAD_DIMS == (16, 32, 64, 128)
+    for hd in PK.FWD_HEAD_DIMS:
+        PK.check_head_dim(hd, "flash_attention_fwd", PK.FWD_HEAD_DIMS)
+    with pytest.raises(ValueError, match="training slice"):
+        PK.check_head_dim(112, "flash_attention_bwd", PK.BWD_HEAD_DIMS)
+    for head_dims in (PK.FWD_HEAD_DIMS, PK.BWD_HEAD_DIMS):
+        with pytest.raises(ValueError, match="head dim 96"):
+            PK.check_head_dim(96, "flash_attention", head_dims)
 
 
 def test_ops_model_layout_on_cpu():
@@ -144,7 +175,7 @@ def _tc_forward(q, k, v, causal):
     return _bf16(acc / l), (m + np.log(l))[..., 0].astype(np.float32)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("s,hq,hkv", [(1, 4, 2), (64, 4, 4), (130, 8, 2),
                                       (200, 4, 1)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -172,7 +203,7 @@ def test_route_is_by_dtype():
                                                           "cuda_core"}
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 def test_fused_projection_views_are_aligned(hd):
     """The model's q/k/v views of one fused projection meet the bf16
     kernels' 16-byte alignment; a view one element off does not."""
