@@ -2,7 +2,8 @@
 """Drive the PyTorch + CUDA port of the SMLA system (``src/repro_torch``)
 on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
 the paper's tables and figures, the serving path whose captured traffic
-feeds it, the training path, the paper's Cascaded-IO datapath matmul and
+feeds it, the training paths (the transformer, the hybrid and the
+encoder-decoder families), the paper's Cascaded-IO datapath matmul and
 its benchmark, and RWKV-6 training.
 
     python3 chip_smoke.py
@@ -161,17 +162,23 @@ and the script exits non-zero):
              size and mode, the prune child's wall.
 15. attn_bwd_parity  the flash-attention backward kernel against its
              plain version (`ref.attention_bwd`) on the card: (B 4, S 2048,
-             Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128) and
-             a ragged S 200, bf16 and float32, causal and full (dq, dk,
-             dv); the bf16 tensor-core kernels' edges, the forward's cases
-             above (hd 112 refused, not launched: the backward is not built
-             for it); every bf16 call twice, bit-identical; and gradients
-             through `ops.flash_attention`'s autograd Function against
-             autograd through the plain forward, float32 (1e-5) and bf16
-             (2^-7 of max |g|).  The kernel is timed beside its plain
-             version and the backward of SDPA, and the forward at the
-             same shape beside SDPA's forward (yardsticks; the port never
-             calls SDPA).
+             Hq 32, Hkv 4, hd 64), (B 2, S 512, Hq 16, Hkv 8, hd 128), a
+             ragged S 200, and at hd 112 zamba2-7b's training shape (B 4,
+             S 2048, Hq 32, Hkv 32) and a ragged S 200 with G 4, and
+             whisper-base's decoder self-attention in training (B 8, S
+             448, Hq 8, Hkv 8, hd 64), bf16 and float32, causal and full
+             (dq, dk, dv; and the forward's o and lse at attn_parity's
+             bounds, so every training path's forward is held at its own
+             shape); the bf16 tensor-core
+             kernels' edges, the forward's cases above (hd 112 too); every
+             bf16 call twice, bit-identical; and gradients through
+             `ops.flash_attention`'s autograd Function against autograd
+             through the plain forward, float32 (1e-5) and bf16 (2^-7 of
+             max |g|).  The kernel is timed beside its plain version and
+             the backward of SDPA, and the forward at the same shape beside
+             its plain version and SDPA's forward (yardsticks; the port
+             never calls SDPA), at the
+             training shapes of `train` and `train_hybrid`.
 16. train    the training path at full width: tinyllama-1.1b (bf16
              compute, float32 master weights and AdamW state), random
              weights from a seed, `SyntheticLM` seed 0, batch 4 x 2048
@@ -188,7 +195,21 @@ and the script exits non-zero):
              the noise floor the phase measures (chunked vs naive).  A
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
-17. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
+17. train_hybrid  the hybrid family trained the same way and held the same
+             way (`train_checked`): serve_hybrid's zamba2-7b cut (full
+             width, 15 of 81 layers: two groups, each with its shared
+             block's site, and a 3-layer tail; bf16 compute, float32
+             master weights, m and v, the SSM leaves included), `train`'s
+             batches (`SyntheticLM` seed 0, 4 x 2048), 6 steps; per step
+             the forward kernel 4 times (2 sites, each again in its
+             recompute) and the backward twice, all at hd 112.
+18. train_encdec  whisper-base at its full size, batches of 8 x 448
+             decoder tokens over 1500 frames from `make_batch`, 6 steps,
+             held the same way; per step the forward kernel 12 times and
+             the backward 6 (the decoder's self-attention, hd 64; the
+             encoder and the cross-attention on the plain chunked path, as
+             in the reference).
+19. pipe_parity  the SMLA cascaded-pipeline matmul (3xTF32 on wgmma:
              a staging kernel, the product kernel, and for Dedicated-IO L
              product launches + a sum kernel) against its plain versions
              and `matmul_striped`: the reference test's grid in float32
@@ -200,7 +221,7 @@ and the script exits non-zero):
              realistic shape, x (8192, 2048) @ w (4, 512, 5632), the
              staging and the sum bit for bit against their plain versions,
              and every kernel's plain version timed.
-18. wkv_parity  the WKV6 kernel against its plain version (the chunked
+20. wkv_parity  the WKV6 kernel against its plain version (the chunked
              path) and the sequential oracle, `y` and the final state, at
              (2,3,128,32) chunk {16,32,64}, (2,2,64,16) chunk 16 and the
              training shape (4,40,2048,64) chunk 64 with float32 and bf16
@@ -219,7 +240,7 @@ and the script exits non-zero):
              own: one device event per call, the kernel), each with its
              bound; the autograd Function's backward timed there, its
              gradients equal, bit for bit, whichever forward ran.
-19. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
+21. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
              to 4 of its 32 layers, random weights from seed 0,
              `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
@@ -235,7 +256,7 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-20. kernels  one JSON line: each kernel with its launches on its main
+22. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -257,6 +278,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -376,13 +398,19 @@ ATTN_SHAPES = ((8, 32, 4, 64), (2, 16, 8, 128), (8, 24, 8, 64),
 #: decode at serve_hybrid's step halfway through its 64 new tokens:
 #: (B, Hq, Hkv, hd, Smax, length), as `decode_bench.SERVING`
 HYBRID_DECODE = (8, 32, 32, 112, 512, 288)
-#: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd)
-BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64))
+#: backward-kernel shapes of phase `attn_bwd_parity`: (B, S, Hq, Hkv, hd);
+#: two at hd 112, zamba2-7b's training shape (G 1) and a ragged S with
+#: G 4, and the last whisper-base's decoder self-attention in training
+#: (train_encdec, G 1)
+BWD_SHAPES = ((4, 2048, 32, 4, 64), (2, 512, 16, 8, 128), (2, 200, 32, 4, 64),
+              (4, 2048, 32, 32, 112), (2, 200, 16, 4, 112),
+              (8, 448, 8, 8, 64))
+#: the backward timed at hd 112: zamba2-7b's training shape (train_hybrid)
+BWD_HD112 = BWD_SHAPES[3]
 #: the bf16 tensor-core kernels' edges, forward and backward, at (B 2,
 #: Hq 8, Hkv 2): (hd, S) for every head dim, S one row, ragged at the
 #: kernels' 64-row tiles (200, 2000) and, at hd 16 and 32, the S of the
-#: cases above (192, 256); hd 112 (the forward's alone: the backward
-#: refuses it) takes the same S
+#: cases above (192, 256)
 FLASH_EDGES = tuple((hd, s) for hd in (16, 32, 64, 112, 128)
                     for s in (1, 200, 2000)) + tuple(
     (hd, s) for hd in (16, 32) for s in (192, 256))
@@ -396,6 +424,11 @@ TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 #: layers of the resume check's model (full width, reduced depth)
 RESUME_LAYERS = 2
+#: phase `train_encdec`: whisper-base at its full size, batches of 8 x 448
+#: decoder tokens (whisper's published text context) over 1500 frames
+#: from `make_batch`, 6 steps; phase `train_hybrid` trains serve_hybrid's
+#: zamba2-7b cut (HYBRID_LAYERS) on `train`'s batches
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448
 #: float32 replay, kernels against their plain versions: the loss to this
 #: relative error, every gradient leaf to this fraction of its max |g|
 #: (only summation order differs: H100 runs measured 1.2e-7 and 7.0e-7)
@@ -590,7 +623,12 @@ def max_abs(a, b) -> float:
 def device_events(prof):
     """(name, ms) of a ``torch.profiler`` window's device events (kernels,
     copies, fills), largest first.  Device events only: a CPU op's device
-    time repeats its kernels'."""
+    time repeats its kernels'.  The windows trace the device alone
+    (``ProfilerActivity.CUDA``): the same device events as with the
+    host's ops traced too, without the host trace's processing, which
+    grows with the host's op count (a zamba2-7b train step's busy time,
+    H100: 1596.1 ms traced with the host, phase `train_hybrid` 84.1 s;
+    1586.0 ms without it, 32.6 s)."""
     import torch
     return sorted(((e.key, e.self_device_time_total / 1e3)
                    for e in prof.key_averages()
@@ -1279,6 +1317,18 @@ def main() -> int:
                     do = randn(gen, (b, s_len, hq, hd), dt)
                     o, lse = fa_kernel.flash_attention_fwd(q, k, v,
                                                            causal=causal)
+                    # the forward at the training paths' shapes too, at
+                    # attn_parity's bounds
+                    want_o, want_lse = flash_plain(q, k, v, causal)
+                    what = (f"flash B{b} S{s_len} Hq{hq} Hkv{hkv} hd{hd} "
+                            f"{dt} causal={causal}")
+                    check(max_abs(o, want_o), 1e-5 if dt == f32 else
+                          BF16_TOL * float(want_o.float().abs().max()),
+                          what + " o", "flash")
+                    check(max_abs(lse, want_lse),
+                          1e-5 if dt == f32 else 1e-4, what + " lse",
+                          "flash")
+                    del want_o, want_lse
                     got = bwd_twice(q, k, v, o, lse, do, causal)
                     want = flash_bwd_plain(q, k, v, o, lse, do, causal)
                     # float32: 1e-5 of max |grad| (sums in another
@@ -1299,26 +1349,12 @@ def main() -> int:
                                                  max_abs(g, w))
                     n += 1
 
-        # the bf16 tensor-core kernels' edges, as in attn_parity, at the
-        # backward's head dims (hd 112 must be refused, not run).  At
-        # S = 1, dq and dk are zero in exact arithmetic and both sides
-        # hold only rounding noise: there they are held to BF16_TOL of
-        # max |dv| instead of their own max
+        # the bf16 tensor-core kernels' edges, as in attn_parity, at every
+        # head dim (hd 112: the padded tiles).  At S = 1, dq and dk are
+        # zero in exact arithmetic and both sides hold only rounding
+        # noise: there they are held to BF16_TOL of max |dv| instead of
+        # their own max
         for hd, s_len in FLASH_EDGES:
-            if hd not in fa_kernel.BWD_HEAD_DIMS:
-                q = randn(gen, (2, s_len, 8, hd), bf16)
-                k = randn(gen, (2, s_len, 2, hd), bf16)
-                o, lse = fa_kernel.flash_attention_fwd(q, k, k)
-                before = fa_kernel.flash_attention_bwd.launches
-                try:
-                    fa_kernel.flash_attention_bwd(q, k, k, o, lse, q)
-                except ValueError:
-                    pass
-                else:
-                    raise RuntimeError(f"flash bwd ran at hd {hd}")
-                if fa_kernel.flash_attention_bwd.launches != before:
-                    raise RuntimeError(f"flash bwd launched at hd {hd}")
-                continue
             for causal in (True, False):
                 q, do = (randn(gen, (2, s_len, 8, hd), bf16)
                          for _ in range(2))
@@ -1381,32 +1417,44 @@ def main() -> int:
                 e2e[dt] = max(e2e[dt], err)
                 n += 1
 
-        # times at the training path's shape, bf16, causal
+        def times(b, s_len, hq, hkv, hd):
+            """The backward kernel, its plain version and SDPA's backward,
+            and the forward kernel, its plain version and SDPA's forward,
+            at a training shape, bf16, causal; with their bounds."""
+            q = randn(gen, (b, s_len, hq, hd), bf16)
+            k = randn(gen, (b, s_len, hkv, hd), bf16)
+            v = randn(gen, (b, s_len, hkv, hd), bf16)
+            do = randn(gen, (b, s_len, hq, hd), bf16)
+            o, lse = fa_kernel.flash_attention_fwd(q, k, v)
+            tq, tk, tv = (x.transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            so = sdpa(tq, tk, tv, is_causal=True, enable_gqa=True)
+            tdo = do.transpose(1, 2)
+            t = {"ms": cuda_ms(lambda: fa_kernel.flash_attention_bwd(
+                     q, k, v, o, lse, do), reps=5, calls=5)[0],
+                 "plain_ms": cuda_ms(lambda: flash_bwd_plain(
+                     q, k, v, o, lse, do), reps=3, calls=3)[0],
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                     so, (tq, tk, tv), tdo, retain_graph=True),
+                     reps=5, calls=5)[0],
+                 "fwd_ms": cuda_ms(lambda: fa_kernel.flash_attention_fwd(
+                     q, k, v), reps=5, calls=5)[0],
+                 "fwd_plain_ms": cuda_ms(lambda: flash_plain(q, k, v),
+                                         reps=3, calls=3)[0],
+                 "fwd_library_ms": cuda_ms(lambda: sdpa(
+                     tq, tk, tv, is_causal=True, enable_gqa=True),
+                     reps=5, calls=5)[0]}
+            t["bound_ms"], t["bound_by"] = attn_bound_ms(
+                *flash_bwd_work(q, k))
+            t["fwd_bound_ms"] = attn_bound_ms(*flash_work(q, k))[0]
+            return t
+
+        # times at the training paths' shapes: tinyllama's (hd 64, G 8)
+        # and zamba2-7b's (hd 112, G 1)
         b, s_len, hq, hkv, hd = BWD_SHAPES[0]
-        q = randn(gen, (b, s_len, hq, hd), bf16)
-        k = randn(gen, (b, s_len, hkv, hd), bf16)
-        v = randn(gen, (b, s_len, hkv, hd), bf16)
-        do = randn(gen, (b, s_len, hq, hd), bf16)
-        o, lse = fa_kernel.flash_attention_fwd(q, k, v)
-        tq, tk, tv = (x.transpose(1, 2).requires_grad_()
-                      for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        so = sdpa(tq, tk, tv, is_causal=True, enable_gqa=True)
-        tdo = do.transpose(1, 2)
-        bw = {"ms": cuda_ms(lambda: fa_kernel.flash_attention_bwd(
-                  q, k, v, o, lse, do), reps=5, calls=5)[0],
-              "plain_ms": cuda_ms(lambda: flash_bwd_plain(
-                  q, k, v, o, lse, do), reps=3, calls=3)[0],
-              "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                  so, (tq, tk, tv), tdo, retain_graph=True),
-                  reps=5, calls=5)[0],
-              "fwd_ms": cuda_ms(lambda: fa_kernel.flash_attention_fwd(
-                  q, k, v), reps=5, calls=5)[0],
-              "fwd_library_ms": cuda_ms(lambda: sdpa(
-                  tq, tk, tv, is_causal=True, enable_gqa=True),
-                  reps=5, calls=5)[0]}
-        bw["bound_ms"], bw["bound_by"] = attn_bound_ms(*flash_bwd_work(q, k))
-        bw["fwd_bound_ms"] = attn_bound_ms(*flash_work(q, k))[0]
+        bw = times(*BWD_SHAPES[0])
+        bw["hd112"] = h112 = times(*BWD_HD112)
         bw["autograd_rel_err"] = e2e[f32]
         bw["autograd_rel_err_bf16"] = e2e[bf16]
         print(json.dumps({"attn_bwd_parity": bw}), flush=True)
@@ -1416,8 +1464,15 @@ def main() -> int:
                     f"{bw['ms']:.4f} ms per call at B{b} S{s_len} Hq{hq} "
                     f"(plain {bw['plain_ms']:.4f}, SDPA backward "
                     f"{bw['library_ms']:.4f}, bound {bw['bound_ms']:.5f}); "
-                    f"fwd {bw['fwd_ms']:.4f} ms (SDPA "
-                    f"{bw['fwd_library_ms']:.4f})")
+                    f"fwd {bw['fwd_ms']:.4f} ms (plain "
+                    f"{bw['fwd_plain_ms']:.4f}, SDPA "
+                    f"{bw['fwd_library_ms']:.4f}); hd 112 {BWD_HD112}: bwd "
+                    f"{h112['ms']:.4f} ms (SDPA {h112['library_ms']:.4f}, "
+                    f"bound {h112['bound_ms']:.5f}), fwd "
+                    f"{h112['fwd_ms']:.4f} ms (plain "
+                    f"{h112['fwd_plain_ms']:.4f}, SDPA "
+                    f"{h112['fwd_library_ms']:.4f}, bound "
+                    f"{h112['fwd_bound_ms']:.5f})")
 
     def decode_profile(eng, prefill_fn, decode_fn, batch, out, n=8):
         """`n` decode steps of the serving run (prompt `batch`, model
@@ -1433,8 +1488,7 @@ def main() -> int:
                                          device=dev)
             cache, _ = prefill_fn(eng.params, batch, cache)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for t in range(n):
                     cache, _ = decode_fn(eng.params, out[:, t:t + 1], cache)
@@ -2428,8 +2482,7 @@ def main() -> int:
         events only: kernels, copies, fills) and the events taking most."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             state, m = step_fn(state, batch)
             float(m["loss"])
@@ -2441,14 +2494,44 @@ def main() -> int:
                 "top_device_events_ms": [(k[:80], ms)
                                          for k, ms in events[:10]]}
 
-    @phase("train")
-    def train():
-        cfg = get_config(TRAIN_ARCH)
+    @contextlib.contextmanager
+    def plain_flash():
+        """The flash kernels' plain versions in their place, under the
+        same autograd Function."""
+        saved = (fa_kernel.flash_attention_fwd,
+                 fa_kernel.flash_attention_bwd)
+        fa_kernel.flash_attention_fwd = flash_plain
+        fa_kernel.flash_attention_bwd = flash_bwd_plain
+        try:
+            yield
+        finally:
+            (fa_kernel.flash_attention_fwd,
+             fa_kernel.flash_attention_bwd) = saved
+
+    def train_checked(label, cfg, data, steps, first_batch):
+        """`steps` steps of `cfg` from seed-0 weights through
+        `launch/train.py`'s functions (`init_state`, `make_train_step`,
+        `loop.train`; attn_impl "pallas", remat "full"), `data.batch(i)`
+        step i's batch, checked: the flash kernels' launch counters reset
+        just before and read just after, every step launching the forward
+        twice per self-attention site (once more in its recompute) and
+        the backward once (`attn_sites`); losses finite; step time
+        (median of steps 3-6), tokens/s, peak memory and the busy share of
+        one profiled step.  Then, from the trained weights and
+        `first_batch(c)` (step 0's batch for config c, on the card): the
+        bf16 loss of the kernel path against its plain versions, within
+        the noise floor the phase measures (chunked vs naive); a float32
+        replay of one step, the loss and every gradient leaf, kernels
+        against their plain versions under the same Function.  Returns
+        the run's stats."""
         pcfg = launch_train.PCFG
-        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        # the earlier phases' cached blocks go back to the card first: a
+        # cache fragmented by other shapes once left zamba2-7b's step
+        # short of one contiguous 3 GB block
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         state = init_state(0, cfg, device=dev)
-        step_fn = make_train_step(cfg, pcfg, total=TRAIN_STEPS)
+        step_fn = make_train_step(cfg, pcfg, total=steps)
         per_step = []
 
         def counted(st, batch):
@@ -2466,63 +2549,51 @@ def main() -> int:
         t0 = time.perf_counter()
         state, hist = train_loop.train(
             state, counted, data, train_loop.LoopConfig(
-                total_steps=TRAIN_STEPS, log_every=1),
+                total_steps=steps, log_every=1),
             log=lambda line: print(f"  {line}", flush=True))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash": fa_kernel.flash_attention_fwd.launches,
                     "flash_bwd": fa_kernel.flash_attention_bwd.launches}
-        # per step: the forward kernel once per layer and once more in
-        # the layer's recompute (remat "full"), the backward once per layer
-        want_step = (2 * cfg.n_layers, cfg.n_layers)
-        want = {"flash": TRAIN_STEPS * want_step[0],
-                "flash_bwd": TRAIN_STEPS * want_step[1]}
+        # per step: the forward kernel once per site and once more in the
+        # site's recompute (remat "full"), the backward once per site
+        sites = attn_sites(cfg)
+        want_step = (2 * sites, sites)
+        want = {"flash": steps * want_step[0],
+                "flash_bwd": steps * want_step[1]}
         if launches != want or any(c != want_step for c in per_step):
-            raise RuntimeError(f"train: kernel launches {launches} (per "
+            raise RuntimeError(f"{label}: kernel launches {launches} (per "
                                f"step {per_step}), want {want}")
         losses = hist["losses"]
-        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-            raise RuntimeError(f"train: losses {losses}")
-        step_ms = sorted(hist["step_s"][2:])
-        med_ms = 1e3 * (step_ms[1] + step_ms[2]) / 2   # median of steps 3-6
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise RuntimeError(f"{label}: losses {losses}")
+        med_ms = 1e3 * float(np.median(hist["step_s"][2:]))  # steps 3-6
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        prof = step_profile(counted, state, data.batch(TRAIN_STEPS))
+        reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
+        free_gb = (torch.cuda.get_device_properties(dev).total_memory / 1e9
+                   - reserved_gb)
+        prof = step_profile(counted, state, data.batch(steps))
         busy = prof["device_busy_ms"]
         prof["device_busy_share"] = (busy / med_ms if busy != "not measured"
                                      else busy)
 
-        # the same weights and batch, forward only: the bf16 loss of the
-        # kernel path against its plain versions, and the bf16 noise floor
-        # (the reference's two plain paths, chunked vs naive)
-        batch0 = {k: torch.from_numpy(v).to(dev)
-                  for k, v in data.batch(0).items()}
+        # the trained weights and step 0's batch, forward only: the bf16
+        # loss of the kernel path against its plain versions, and the bf16
+        # noise floor (the reference's two plain paths, chunked vs naive)
+        t_checks = time.perf_counter()
+        batch0 = first_batch(cfg)
         model = get_model(cfg)
 
-        @contextlib.contextmanager
-        def plain_kernels():
-            """The kernels' plain versions in their place, under the same
-            autograd Function."""
-            saved = (fa_kernel.flash_attention_fwd,
-                     fa_kernel.flash_attention_bwd)
-            fa_kernel.flash_attention_fwd = flash_plain
-            fa_kernel.flash_attention_bwd = flash_bwd_plain
-            try:
-                yield
-            finally:
-                (fa_kernel.flash_attention_fwd,
-                 fa_kernel.flash_attention_bwd) = saved
-
-        def loss_of(rcfg, impl="pallas", plain=False):
+        def loss_of(impl="pallas", plain=False):
             pc = dataclasses.replace(pcfg, attn_impl=impl)
-            with (plain_kernels() if plain else contextlib.nullcontext()), \
+            with (plain_flash() if plain else contextlib.nullcontext()), \
                     torch.no_grad():
-                h, _ = model.forward(state.params, batch0, rcfg, pc)
+                h, _ = model.forward(state.params, batch0, cfg, pc)
                 return float(chunked_lm_loss(state.params, h,
-                                             batch0["labels"], rcfg,
+                                             batch0["labels"], cfg,
                                              chunk=pc.logit_chunk))
-        l16 = {"kernel": loss_of(cfg), "plain": loss_of(cfg, plain=True),
-               "naive": loss_of(cfg, "naive"),
-               "chunked": loss_of(cfg, "chunked")}
+        l16 = {"kernel": loss_of(), "plain": loss_of(plain=True),
+               "naive": loss_of("naive"), "chunked": loss_of("chunked")}
         floor16 = abs(l16["chunked"] - l16["naive"])
         tol16 = max(TRAIN_LOSS_TOL_BF16, 1.5 * floor16)
         gap16 = abs(l16["kernel"] - l16["plain"])
@@ -2531,33 +2602,75 @@ def main() -> int:
         # leaf with the kernels against the same with their plain versions
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         grad32 = make_grad_fn(cfg32, pcfg)
-        (lk, _), gk = grad32(state.params, batch0)
-        with plain_kernels():
-            (lp, _), gp = grad32(state.params, batch0)
+        batch32 = first_batch(cfg32)
+        (lk, _), gk = grad32(state.params, batch32)
+        with plain_flash():
+            (lp, _), gp = grad32(state.params, batch32)
         loss_err32 = abs(float(lk) - float(lp)) / abs(float(lp))
         flat_p = cm.flatten_paths(gp)
         grad_err32 = {name: rel_err(g, flat_p[name])
                       for name, g in cm.flatten_paths(gk).items()}
         worst32 = max(grad_err32.values())
-        del gk, gp, flat_p
-        replay = {"bf16_losses": l16, "bf16_gap": gap16,
+        del gk, gp, flat_p, state
+        checks_s = time.perf_counter() - t_checks
+        replay = {"checks_wall_s": checks_s,
+                  "bf16_losses": l16, "bf16_gap": gap16,
                   "bf16_floor_chunked_vs_naive": floor16,
                   "bf16_tolerance": tol16, "f32_loss_kernel": float(lk),
                   "f32_loss_plain": float(lp), "f32_loss_rel_err": loss_err32,
                   "f32_grad_rel_err_max": worst32,
                   "f32_grad_rel_err": grad_err32}
-        print(json.dumps({"train_replay": replay}), flush=True)
+        print(json.dumps({f"{label}_replay": replay}), flush=True)
         if not (gap16 <= tol16 and loss_err32 <= TRAIN_LOSS_TOL_F32
                 and worst32 <= TRAIN_GRAD_TOL_F32):
             raise RuntimeError(
-                f"train: kernel path vs plain versions: bf16 loss gap "
+                f"{label}: kernel path vs plain versions: bf16 loss gap "
                 f"{gap16} (tolerance {tol16}), float32 loss {loss_err32} "
                 f"(tolerance {TRAIN_LOSS_TOL_F32}), float32 grads {worst32} "
                 f"(tolerance {TRAIN_GRAD_TOL_F32})")
-        del state
+        b, s_len = batch0["tokens"].shape
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "params": cfg.n_params(), "batch": b, "seq": s_len,
+                "steps": steps, "losses": losses,
+                "step_ms": [1e3 * x for x in hist["step_s"]],
+                "step_ms_median_3_6": med_ms,
+                "tokens_per_s": b * s_len / med_ms * 1e3,
+                "wall_s": wall, "checks_wall_s": checks_s,
+                "peak_memory_gb": peak_gb, "peak_reserved_gb": reserved_gb,
+                "free_at_peak_gb": free_gb, "launches": launches, "launches_per_step": want_step,
+                "profile": prof, "replay_f32_grad_rel_err": worst32,
+                "replay_f32_loss_rel_err": loss_err32,
+                "bf16_loss_gap": gap16, "bf16_tolerance": tol16,
+                "bf16_floor": floor16, "card": smi}
+
+    def train_line(st):
+        busy = st["profile"]["device_busy_share"]
+        return (f"{st['arch']} ({st['n_layers']} layers) B{st['batch']} x "
+                f"{st['seq']}: step {st['step_ms_median_3_6']:.1f} ms, "
+                f"{st['tokens_per_s']:.0f} tok/s, busy "
+                f"{busy if isinstance(busy, str) else f'{busy:.1%}'}, peak "
+                f"{st['peak_memory_gb']:.1f} GB (reserved "
+                f"{st['peak_reserved_gb']:.1f}, free "
+                f"{st['free_at_peak_gb']:.1f}; {smi}); launches "
+                f"{st['launches']}; losses {st['losses'][0]:.4f} -> "
+                f"{st['losses'][-1]:.4f}; float32 replay grads "
+                f"{st['replay_f32_grad_rel_err']:.2e}, loss "
+                f"{st['replay_f32_loss_rel_err']:.2e}; bf16 loss gap "
+                f"{st['bf16_loss_gap']:.5f} (floor {st['bf16_floor']:.5f})")
+
+    def device_batch(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    @phase("train")
+    def train():
+        cfg = get_config(TRAIN_ARCH)
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        st = train_checked("train", cfg, data, TRAIN_STEPS,
+                           lambda c: device_batch(data.batch(0)))
 
         # resume: 2 layers at full width; save after step 2, restore, take
         # step 3 through the loop: the uninterrupted run's loss
+        pcfg = launch_train.PCFG
         rcfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
         rstep = make_train_step(rcfg, pcfg, total=TRAIN_STEPS)
         (ROOT / "build").mkdir(exist_ok=True)
@@ -2574,25 +2687,34 @@ def main() -> int:
         if not resume_err <= 1e-6:
             raise RuntimeError(f"train: resumed loss {rhist2['losses'][0]} "
                                f"vs {rhist['losses'][2]}")
-
-        st = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-              "steps": TRAIN_STEPS, "losses": losses,
-              "step_ms": [1e3 * x for x in hist["step_s"]],
-              "step_ms_median_3_6": med_ms,
-              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med_ms * 1e3,
-              "wall_s": wall, "peak_memory_gb": peak_gb,
-              "launches": launches, "launches_per_step": want_step,
-              "profile": prof, "replay_f32_grad_rel_err": worst32,
-              "replay_f32_loss_rel_err": loss_err32, "bf16_loss_gap": gap16,
-              "resume_loss_err": resume_err, "card": smi}
+        st["resume_loss_err"] = resume_err
         print(json.dumps({"train": st}), flush=True)
-        return st, (
-            f"{TRAIN_ARCH} B{TRAIN_BATCH} x {TRAIN_SEQ}: step "
-            f"{med_ms:.1f} ms, {st['tokens_per_s']:.0f} tok/s, peak "
-            f"{peak_gb:.1f} GB ({smi}); launches {launches}; losses "
-            f"{losses[0]:.4f} -> {losses[-1]:.4f}; float32 replay grads "
-            f"{worst32:.2e}, loss {loss_err32:.2e}; bf16 loss gap {gap16:.5f}"
-            f" (floor {floor16:.5f}); resume exact to {resume_err}")
+        return st, f"{train_line(st)}; resume exact to {resume_err}"
+
+    @phase("train_hybrid")
+    def train_hybrid():
+        cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                                  n_layers=HYBRID_LAYERS)
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        st = train_checked("train_hybrid", cfg, data, TRAIN_STEPS,
+                           lambda c: device_batch(data.batch(0)))
+        print(json.dumps({"train_hybrid": st}), flush=True)
+        return st, train_line(st)
+
+    @phase("train_encdec")
+    def train_encdec():
+        cfg = get_config(ENCDEC_ARCH)
+
+        def batch_of(c, step):
+            """Step `step`'s batch for config `c`: tokens, labels and the
+            frame embeddings in c's compute dtype."""
+            return make_batch(step, c, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ,
+                              "train", device=dev)
+        data = types.SimpleNamespace(batch=lambda step: batch_of(cfg, step))
+        st = train_checked("train_encdec", cfg, data, TRAIN_STEPS,
+                           lambda c: batch_of(c, 0))
+        print(json.dumps({"train_encdec": st}), flush=True)
+        return st, train_line(st)
 
     # ------------------------------------------------------------------
     # the paper's datapath kernel (smla_pipe) and RWKV-6's (wkv6)
@@ -3225,6 +3347,8 @@ def main() -> int:
     scale_stats = sweep_scale()
     bwd = attn_bwd_parity()
     train_stats = train()
+    hybrid_train = train_hybrid()
+    encdec_train = train_encdec()
     pipe = pipe_parity()
     wkv = wkv_parity()
     rwkv_stats = train_rwkv()
@@ -3272,25 +3396,41 @@ def main() -> int:
             "serve_hybrid_launches": hybrid_stats["launches"]["flash"],
             "serve_encdec_launches": encdec_stats["launches"]["flash"],
             "train_launches": train_stats["launches"]["flash"],
+            "train_hybrid_launches": hybrid_train["launches"]["flash"],
+            "train_encdec_launches": encdec_train["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
             "train_shape_bound_ms": bwd["fwd_bound_ms"],
+            "train_shape_plain_ms": bwd["fwd_plain_ms"],
             "train_shape_library_ms": bwd["fwd_library_ms"],
             "hd112": dict(attn["flash_hd112"],
                           shape="q/k/v (8,256,32,112) bf16, causal "
                                 "(serve_hybrid's prefill)"),
+            "hd112_train": {
+                "ms": bwd["hd112"]["fwd_ms"],
+                "bound_ms": bwd["hd112"]["fwd_bound_ms"],
+                "plain_ms": bwd["hd112"]["fwd_plain_ms"],
+                "library_ms": bwd["hd112"]["fwd_library_ms"],
+                "shape": "q/k/v (4,2048,32,112) bf16, causal "
+                         "(train_hybrid)"},
             "check": "ok"}, {
             "name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
             "float32_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:219",
             "launches": train_stats["launches"]["flash_bwd"],
+            "train_hybrid_launches": hybrid_train["launches"]["flash_bwd"],
+            "train_encdec_launches": encdec_train["launches"]["flash_bwd"],
             "max_abs_err": bwd_err["max_abs"],
             "max_rel_err": bwd_err["max_rel"],
             **{k: bwd[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")},
             "shape": "q/o/do (4,2048,32,64), k/v (4,2048,4,64) bf16, causal",
+            "hd112": dict({k: bwd["hd112"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                shape="q/k/v/o/do (4,2048,32,112) bf16, causal "
+                      "(train_hybrid)"),
             "check": "ok"}, {
             "name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",

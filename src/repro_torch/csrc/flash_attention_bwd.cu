@@ -40,6 +40,11 @@
 // written through strides; lse and delta (B, Hq, S) float32, contiguous.
 // The kv head of q head h is h / (Hq / Hkv).  A ragged last tile
 // (S % 64 != 0) is masked: any S is right.
+//
+// Head dims 16, 32, 64, 112 and 128: any multiple of the thread grid's
+// side (16) works, each thread holding hd / 16 output columns.  hd 112
+// (zamba2-7b's shared attention) asks for 149,504 bytes of shared memory
+// in dk/dv and 132,864 in dq, under hd 128's 165,888 and 149,248.
 #include <stdint.h>
 
 #include "attention_common.cuh"
@@ -377,6 +382,9 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
                                S, Hq, Hkv, causal, scale, s);
+    case 112:
+      return launch<float, 112>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
+                                S, Hq, Hkv, causal, scale, s);
     case 128:
       return launch<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, st, B,
                                 S, Hq, Hkv, causal, scale, s);

@@ -53,6 +53,17 @@
 // 16-byte-aligned bases (the wrapper checks); lse and delta (B, Hq, S)
 // float32, contiguous.  The kv head of q head h is h / (Hq / Hkv).  Rows
 // past S load as zeros and are masked: any S is right.
+//
+// Head dims 16, 32, 64 and 128 fill whole swizzle atoms.  hd 112
+// (zamba2-7b's shared attention) keeps every tile 128 columns wide in
+// shared memory (tc::tile_cols), as the forward does: each load, of the
+// block's own tiles and of every streamed one, zero-fills columns
+// 112-127.  S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T run the
+// 7 k-steps that hold data; dV += P^T dO, dK += dS^T Q and dQ += dS K run
+// at n = 128 (the instruction and MN-major descriptor of hd 128, whose
+// atoms are whole), the zero columns feeding accumulator columns that are
+// never stored; dq, dk and dv store their first 112 columns.  The scale
+// stays 1/sqrt(112) (the wrapper's).
 #include "attention_tc.cuh"
 
 namespace {
@@ -67,14 +78,14 @@ template <int HD>
 constexpr size_t dkdv_smem_bytes() {
   // alignment slack; K, V; per stage Q, dO (swizzled tiles of R rows)
   // and lse, delta
-  return 1024 + sizeof(bf16) * R * HD * (2 + 2 * STAGES) +
+  return 1024 + sizeof(bf16) * R * tc::tile_cols(HD) * (2 + 2 * STAGES) +
          sizeof(float) * 2 * R * STAGES;
 }
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
   // alignment slack; Q, dO; per stage K, V
-  return 1024 + sizeof(bf16) * R * HD * (2 + 2 * STAGES);
+  return 1024 + sizeof(bf16) * R * tc::tile_cols(HD) * (2 + 2 * STAGES);
 }
 
 //! the block's tiles, from a 1024-byte-aligned base
@@ -96,7 +107,8 @@ __global__ void __launch_bounds__(128)
                              Strides sdk, Strides sdv, int S, int Hq,
                              int Hkv, int n_bh, int group, int causal,
                              float scale, float scale_log2) {
-  constexpr int NS = STAGES, T = R * HD;
+  constexpr int HP = tc::tile_cols(HD);  // columns of a tile
+  constexpr int NS = STAGES, T = R * HP;
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = tiles(smem_raw);
   bf16* Vs = Ks + T;
@@ -135,10 +147,10 @@ __global__ void __launch_bounds__(128)
         int h, q0;
         tile_of(j, h, q0);
         bf16* dst = Qs + 2 * (j % NS) * T;
-        tc::load_rows<R, HD, 128>(dst, q + b * sq.b + h * sq.h, sq.s, q0, S,
-                                  tid);
-        tc::load_rows<R, HD, 128>(dst + T, dout + b * sdo.b + h * sdo.h,
-                                  sdo.s, q0, S, tid);
+        tc::load_rows<R, HP, 128, HD>(dst, q + b * sq.b + h * sq.h, sq.s,
+                                      q0, S, tid);
+        tc::load_rows<R, HP, 128, HD>(dst + T, dout + b * sdo.b + h * sdo.h,
+                                      sdo.s, q0, S, tid);
         // lse (tid < R), then delta: their rows need not be aligned
         const int r = tid % R;
         const float* src = (tid < R ? lse : delta) +
@@ -150,13 +162,13 @@ __global__ void __launch_bounds__(128)
     };
 
     __syncthreads();  // the previous tile's readers of K and V are done
-    tc::load_rows<R, HD, 128>(Ks, kb, sk.s, k0, S, tid);
-    tc::load_rows<R, HD, 128>(Vs, vb, sv.s, k0, S, tid);
+    tc::load_rows<R, HP, 128, HD>(Ks, kb, sk.s, k0, S, tid);
+    tc::load_rows<R, HP, 128, HD>(Vs, vb, sv.s, k0, S, tid);
     tc::cp_async_commit();
 #pragma unroll
     for (int j = 0; j < NS - 1; ++j) load_step(j);
 
-    float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+    float dk_acc[HP / 8][4], dv_acc[HP / 8][4];
     tc::zero(dk_acc);
     tc::zero(dv_acc);
     for (int j = 0; j < n_it; ++j) {
@@ -181,11 +193,11 @@ __global__ void __launch_bounds__(128)
       tc::wg_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)  // S^T = K Q^T
-        tc::mma_ss(s, tc::kdesc<HD, R>(Ks, kk), tc::kdesc<HD, R>(Qt, kk),
+        tc::mma_ss(s, tc::kdesc<HP, R>(Ks, kk), tc::kdesc<HP, R>(Qt, kk),
                    kk);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)  // dP^T = V dO^T
-        tc::mma_ss(dp, tc::kdesc<HD, R>(Vs, kk), tc::kdesc<HD, R>(dOt, kk),
+        tc::mma_ss(dp, tc::kdesc<HP, R>(Vs, kk), tc::kdesc<HP, R>(dOt, kk),
                    kk);
       tc::wg_commit();
       tc::wg_wait();
@@ -215,10 +227,10 @@ __global__ void __launch_bounds__(128)
       tc::wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO, q rows 16 kk ..
-        tc::mma_rs<HD>(dv_acc, pf[kk], tc::mndesc<HD, R>(dOt, kk), 1);
+        tc::mma_rs<HP>(dv_acc, pf[kk], tc::mndesc<HP, R>(dOt, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
-        tc::mma_rs<HD>(dk_acc, sf[kk], tc::mndesc<HD, R>(Qt, kk), 1);
+        tc::mma_rs<HP>(dk_acc, sf[kk], tc::mndesc<HP, R>(Qt, kk), 1);
       tc::wg_commit();
       tc::wg_wait();
       tc::fence_acc(dv_acc);
@@ -226,10 +238,10 @@ __global__ void __launch_bounds__(128)
     }
     tc::cp_async_wait<0>();  // (only empty groups are left)
 
-    tc::store_rows<HD>(dk + b * sdk.b + hk * sdk.h, sdk.s, kr0, S, dk_acc,
-                       1.f, 1.f, lane);
-    tc::store_rows<HD>(dv + b * sdv.b + hk * sdv.h, sdv.s, kr0, S, dv_acc,
-                       1.f, 1.f, lane);
+    tc::store_rows<HP, HD>(dk + b * sdk.b + hk * sdk.h, sdk.s, kr0, S,
+                           dk_acc, 1.f, 1.f, lane);
+    tc::store_rows<HP, HD>(dv + b * sdv.b + hk * sdv.h, sdv.s, kr0, S,
+                           dv_acc, 1.f, 1.f, lane);
   }
 }
 
@@ -245,7 +257,8 @@ __global__ void __launch_bounds__(128)
                            Strides sv, Strides sdo, Strides sdq, int S,
                            int Hq, int n_bh, int group, int causal,
                            float scale, float scale_log2) {
-  constexpr int NS = STAGES, T = R * HD;
+  constexpr int HP = tc::tile_cols(HD);  // columns of a tile
+  constexpr int NS = STAGES, T = R * HP;
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = tiles(smem_raw);
   bf16* dOs = Qs + T;
@@ -268,14 +281,15 @@ __global__ void __launch_bounds__(128)
   auto load_kv = [&](int kt) {  // one commit group per tile, even empty
     if (kt < n_kv) {
       bf16* dst = Ks + 2 * (kt % NS) * T;
-      tc::load_rows<R, HD, 128>(dst, kb, sk.s, kt * R, S, tid);
-      tc::load_rows<R, HD, 128>(dst + T, vb, sv.s, kt * R, S, tid);
+      tc::load_rows<R, HP, 128, HD>(dst, kb, sk.s, kt * R, S, tid);
+      tc::load_rows<R, HP, 128, HD>(dst + T, vb, sv.s, kt * R, S, tid);
     }
     tc::cp_async_commit();
   };
-  tc::load_rows<R, HD, 128>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
-  tc::load_rows<R, HD, 128>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S,
-                            tid);
+  tc::load_rows<R, HP, 128, HD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S,
+                                tid);
+  tc::load_rows<R, HP, 128, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0,
+                                S, tid);
 #pragma unroll
   for (int kt = 0; kt < NS - 1; ++kt) load_kv(kt);
 
@@ -289,7 +303,7 @@ __global__ void __launch_bounds__(128)
     dr[hf] = row < S ? delta[row0 + row] : 0.f;
   }
 
-  float dq_acc[HD / 8][4];
+  float dq_acc[HP / 8][4];
   tc::zero(dq_acc);
   for (int kt = 0; kt < n_kv; ++kt) {
     tc::cp_async_wait<NS - 2>();
@@ -307,11 +321,11 @@ __global__ void __launch_bounds__(128)
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)  // S = Q K^T
-      tc::mma_ss(s, tc::kdesc<HD, R>(Qs, kk), tc::kdesc<HD, R>(Kt, kk), kk);
+      tc::mma_ss(s, tc::kdesc<HP, R>(Qs, kk), tc::kdesc<HP, R>(Kt, kk), kk);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)  // dP = dO V^T
-      tc::mma_ss(dp, tc::kdesc<HD, R>(dOs, kk),
-                 tc::kdesc<HD, R>(Kt + T, kk), kk);
+      tc::mma_ss(dp, tc::kdesc<HP, R>(dOs, kk),
+                 tc::kdesc<HP, R>(Kt + T, kk), kk);
     tc::wg_commit();
     tc::wg_wait();
     tc::fence_acc(s);
@@ -337,15 +351,15 @@ __global__ void __launch_bounds__(128)
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)  // dQ += dS K, kv rows 16 kk ..
-      tc::mma_rs<HD>(dq_acc, sf[kk], tc::mndesc<HD, R>(Kt, kk), 1);
+      tc::mma_rs<HP>(dq_acc, sf[kk], tc::mndesc<HP, R>(Kt, kk), 1);
     tc::wg_commit();
     tc::wg_wait();
     tc::fence_acc(dq_acc);
   }
   tc::cp_async_wait<0>();  // (only empty groups are left)
 
-  tc::store_rows<HD>(dq + b * sdq.b + h * sdq.h, sdq.s, r0, S, dq_acc, 1.f,
-                     1.f, lane);
+  tc::store_rows<HP, HD>(dq + b * sdq.b + h * sdq.h, sdq.s, r0, S, dq_acc,
+                         1.f, 1.f, lane);
 }
 
 template <int HD>
@@ -423,6 +437,9 @@ int flash_attention_bwd_tc_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S, Hq,
                         Hkv, causal, scale, s);
+    case 112:
+      return launch<112>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S, Hq,
+                         Hkv, causal, scale, s);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, S, Hq,
                          Hkv, causal, scale, s);

@@ -23,10 +23,10 @@ are deterministic (no atomics).  Any S is right: ragged last tiles are
 masked.  The kernels' sources say what bounds them and what their design
 does about that.
 
-Head dims: the forward takes 16, 32, 64, 112 and 128 (112: zamba2-7b's
-shared attention; the bf16 kernel keeps its tiles 128 columns wide in
-shared memory, the last 16 zero-filled), the backward 16, 32, 64 and 128
-(112 waits for the training slice of the hybrid family).
+Head dims: both directions take 16, 32, 64, 112 and 128.  At 112
+(zamba2-7b's shared attention) the bf16 kernels keep their tiles 128
+columns wide in shared memory, the last 16 zero-filled on every load, and
+store 112 columns; the float32 kernels take it as any multiple of 16.
 
 Build: route (b) (`repro_torch._build`), at first use, one library for
 each direction and dtype.  The wrappers check device, dtype, head dim
@@ -58,7 +58,7 @@ TC_BWD_SOURCES = ("attention_common.cuh", "attention_tc.cuh",
                   "flash_attention_bwd_tc.cu")
 #: head dims each direction's kernels are built for
 FWD_HEAD_DIMS = (16, 32, 64, 112, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 #: the kernels of each dtype: bf16 on the tensor cores, float32 on the
 #: CUDA cores
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
@@ -120,10 +120,7 @@ def build_bwd_tc() -> ctypes.CDLL:
 def check_head_dim(hd: int, who: str, head_dims) -> None:
     """Raise unless the kernels of `head_dims` are built for `hd`."""
     if hd not in head_dims:
-        later = (" (the forward takes it; the backward comes with the "
-                 "hybrid family's training slice, ROADMAP)"
-                 if hd in FWD_HEAD_DIMS else "")
-        raise ValueError(f"{who}: head dim {hd} not in {head_dims}{later}")
+        raise ValueError(f"{who}: head dim {hd} not in {head_dims}")
 
 
 def check_inputs(q, k, v, who: str = "flash_attention_fwd",

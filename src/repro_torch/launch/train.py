@@ -6,12 +6,18 @@
 
 Runs on ``cuda`` unless ``--device cpu`` is given, with
 ``attn_impl="pallas"`` (the hand-written Hopper kernels: flash attention
-forward and backward for the transformer, WKV6 for ``--arch rwkv6-3b``;
-on the CPU their plain versions) and ``remat="full"`` (each layer
-recomputed in the backward).  The reference
+forward and backward for the transformer families and zamba2-7b's shared
+attention (head dim 112), WKV6 for ``--arch rwkv6-3b``; on the CPU their
+plain versions) and ``remat="full"`` (each layer, or each zamba group
+with its shared block, recomputed in the backward).  The reference
 launcher's default ``"chunked"`` is an XLA path with no kernel.
 ``--distributed`` (multi-host, a mesh) waits for Slice F (ROADMAP) and
 raises.
+
+The batches come from `SyntheticLM`, tokens only, as the reference's do:
+``--arch whisper-base`` stops at the missing frame embeddings
+(``KeyError: 'enc_embed'``) in both launchers; the encoder-decoder family
+trains through `make_train_step` on ``models.make_batch(..., "train")``.
 """
 from __future__ import annotations
 

@@ -11,7 +11,11 @@ B_t, C_t are shared across the heads of a group (n_groups).  The chunked
 decay matrix (all exponents <= 0) and carries the (P, N) state across
 chunks: mathematically the sequential scan.  Plain PyTorch, as the
 reference is plain JAX: it has no kernel for the SSD.  The reference's
-``lax.scan`` over steps and chunks is a Python loop here.
+``lax.scan`` over steps and chunks is a Python loop here.  One deviation:
+the chunked scan masks the decay exponents above the diagonal before its
+exp, not after, so that a chunk whose decays sum past float32's exp
+range trains to finite gradients (the reference's are NaN there; its
+values are the same).
 """
 from __future__ import annotations
 
@@ -70,9 +74,14 @@ def ssd_chunked(x, dt, la, Bm, Cm, state, chunk: int = 128):
         xc, dtc, lac, bc, cc = (a[:, i0:i0 + c].float()
                                 for a in (x, dt, la, Bm, Cm))
         scum = torch.cumsum(lac, dim=1)                # (B,c,H) inclusive
-        # intra: decay(i,j) = exp(s_i - s_j), j <= i
+        # intra: decay(i,j) = exp(s_i - s_j), j <= i.  The mask goes in
+        # before the exp: above the diagonal s_i - s_j > 0 overflows once a
+        # chunk's decays sum past ~88, and exp's gradient there, inf x 0,
+        # would be NaN (the reference masks after its exp and so trains to
+        # NaN gradients; the values are the same bits)
         diff = scum[:, :, None] - scum[:, None, :]     # (B,ci,cj,H)
-        dec = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        dec = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                    float("-inf")))
         cbm = torch.einsum("bihn,bjhn->bijh", cc, bc)  # (B,ci,cj,H)
         m = cbm * dec * dtc[:, None]                   # dt_j on axis cj
         y = torch.einsum("bijh,bjhp->bihp", m, xc)

@@ -19,12 +19,19 @@ see different cross K/V, as in the reference.  The reference returns a
 new cache; here prefill and decode write into the cache's tensors in
 place and return the cache dict with its position and lengths advanced
 (the caller's dict is not changed).  ``cache["pos"]`` is a Python int.
-Remat (``pcfg.remat``) is not read: training this family is a later
-slice.
+
+Remat: with ``pcfg.remat == "full"`` each encoder layer and each decoder
+layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward, the counterpart of the reference's ``jax.checkpoint(...,
+nothing_saveable)`` around its layer scans (under
+``torch.inference_mode()`` nothing is recomputed).  Every decoder layer
+projects the cross K/V from the encoder's output, so the encoder's
+gradient gathers from all of them.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
@@ -42,9 +49,27 @@ def init(gen, cfg: ModelConfig, device="cuda"):
     return cm.init_from_shapes(gen, _param_shapes(cfg), dev)
 
 
+def _layer_call(pcfg: ParallelConfig, fn, *args, **kwargs):
+    """fn(*args, **kwargs), recomputed in the backward when
+    ``pcfg.remat == "full"``."""
+    if pcfg.remat == "full":
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+    return fn(*args, **kwargs)
+
+
 # ----------------------------------------------------------------------------
 # encoder
 # ----------------------------------------------------------------------------
+
+
+def _enc_layer(pl, x, positions, cfg, pcfg):
+    h = cm.layer_norm(x, pl["norm_attn"], cfg.norm_eps)
+    x = x + attention_block(pl["attn"], h, positions, cfg, pcfg,
+                            causal=False)
+    h = cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps)
+    return x + mlp_block(pl["mlp"], h, cfg, pcfg)
 
 
 def encode(params, enc_embed, cfg: ModelConfig, pcfg: ParallelConfig):
@@ -55,12 +80,8 @@ def encode(params, enc_embed, cfg: ModelConfig, pcfg: ParallelConfig):
                             device=enc_embed.device)
     layers = {k: v for k, v in params["enc"].items() if k != "final_norm"}
     for i in range(cfg.n_enc_layers):
-        pl = _index(layers, i)
-        h = cm.layer_norm(x, pl["norm_attn"], cfg.norm_eps)
-        x = x + attention_block(pl["attn"], h, dummy_pos, cfg, pcfg,
-                                causal=False)
-        h = cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps)
-        x = x + mlp_block(pl["mlp"], h, cfg, pcfg)
+        x = _layer_call(pcfg, _enc_layer, _index(layers, i), x, dummy_pos,
+                        cfg, pcfg)
     return cm.layer_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
 
 
@@ -107,8 +128,8 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed_dec(params, tokens, cfg)
     for i in range(cfg.n_layers):
-        x = _dec_layer(_index(params["dec"], i), x, positions, cfg, pcfg,
-                       enc_out=enc_out)
+        x = _layer_call(pcfg, _dec_layer, _index(params["dec"], i), x,
+                        positions, cfg, pcfg, enc_out=enc_out)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
                                        device=x.device)}

@@ -22,10 +22,16 @@ the sequential scan, as in the reference; the shared block's attention
 goes through the flash-attention and flash-decode kernels with
 ``attn_impl="pallas"`` (head dim 112 at zamba2-7b's width).
 
+``forward`` honours ``pcfg.remat == "full"``: each mamba layer and each
+site of the shared block runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward, the counterpart of the reference's
+``jax.checkpoint(..., nothing_saveable)`` around its group and tail scan
+bodies, at a finer grain (`_run`).  The shared block's weights are read
+at every site, so autograd sums their gradients over the sites.  Serving
+(prefill, decode) has no backward and no remat.
+
 Not here: the reference's sharding annotations (``cm.shard``,
-``cache_specs``), which are multi-device concerns (ROADMAP Slice F), and
-remat (``pcfg.remat`` is not read: training this family is a later
-slice).
+``cache_specs``), which are multi-device concerns (ROADMAP Slice F).
 
 Simplification vs. the published model (as in the reference): the shared
 block consumes the hidden state directly rather than concat(hidden,
@@ -33,7 +39,10 @@ embedding).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
@@ -96,13 +105,23 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
     order, the shared block after each group's last.  Without `cache`
     every layer starts from zero states; with it, layer i from its conv
     and SSM state there, which it overwrites, and the shared block of
-    group g reads and writes KV slab g at ``cache["pos"]``."""
+    group g reads and writes KV slab g at ``cache["pos"]``.  Without
+    `cache` and with ``pcfg.remat == "full"`` each mamba layer and each
+    shared-block site is recomputed in the backward: finer than the
+    reference's group checkpoints, the same values, and one layer's SSD
+    tensors held at a time (a group's six did not fit on an 80 GB card
+    at zamba2-7b's width and 4 x 2048 tokens)."""
     ae = cfg.attn_every
+    if cache is None and pcfg.remat == "full":
+        call = functools.partial(torch.utils.checkpoint.checkpoint,
+                                 use_reentrant=False)
+    else:
+        call = lambda fn, *args, **kw: fn(*args, **kw)  # noqa: E731
     for i in range(cfg.n_layers):
         st = ((None, None) if cache is None
               else (cache["conv"][i], cache["ssm"][i]))
-        x, (conv, ssm) = _mamba_layer(_layer(params, i), x, cfg, pcfg, st,
-                                      chunked=chunked)
+        x, (conv, ssm) = call(_mamba_layer, _layer(params, i), x, cfg, pcfg,
+                              st, chunked=chunked)
         if cache is not None:
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
@@ -110,8 +129,8 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
             g = i // ae
             kv = (None if cache is None else
                   (cache["k"][g], cache["v"][g], cache["pos"], lengths))
-            x = _shared_block(params["shared"], x, positions, cfg, pcfg,
-                              cache=kv)
+            x = call(_shared_block, params["shared"], x, positions, cfg,
+                     pcfg, kv)
     return x
 
 

@@ -47,15 +47,17 @@ def adamw_update(grads, state: AdamWState, params, lr, step,
     c1, c2 = 1 - b1 ** t, 1 - b2 ** t
 
     def upd(g, m, v, p):
+        # the reference's operations in its order, the temporaries this
+        # function owns updated in place (the same bits): a leaf's update
+        # holds fewer leaf-sized tensors at once (a stacked leaf of
+        # zamba2-7b at full width is 3.2 GB)
         g = g.float()
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * g.square()
-        m_hat = m_new / c1
-        v_hat = v_new / c2
-        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
+        delta = (m_new / c1).div_((v_new / c2).sqrt_().add_(cfg.eps))
         if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.float()
-        p_new = (p.float() - lr * delta).to(p.dtype)
+            delta.add_(cfg.weight_decay * p.float())
+        p_new = (p.float() - delta.mul_(lr)).to(p.dtype)
         return p_new, m_new, v_new
 
     flat = map_tree(lambda *x: upd(*x), grads, state.m, state.v, params)

@@ -85,15 +85,14 @@ def test_head_dim_112_against_reference(causal):
 
 
 def test_head_dims_of_each_direction():
-    """The forward's kernels take head dim 112, the backward's refuse it
-    (naming the later slice), and neither takes a dim it is not built
-    for."""
+    """Both directions' kernels take head dim 112 (zamba2-7b's shared
+    attention, trained since the hybrid family's training slice), and
+    neither takes a dim it is not built for."""
     assert PK.FWD_HEAD_DIMS == (16, 32, 64, 112, 128)
-    assert PK.BWD_HEAD_DIMS == (16, 32, 64, 128)
+    assert PK.BWD_HEAD_DIMS == (16, 32, 64, 112, 128)
     for hd in PK.FWD_HEAD_DIMS:
         PK.check_head_dim(hd, "flash_attention_fwd", PK.FWD_HEAD_DIMS)
-    with pytest.raises(ValueError, match="training slice"):
-        PK.check_head_dim(112, "flash_attention_bwd", PK.BWD_HEAD_DIMS)
+        PK.check_head_dim(hd, "flash_attention_bwd", PK.BWD_HEAD_DIMS)
     for head_dims in (PK.FWD_HEAD_DIMS, PK.BWD_HEAD_DIMS):
         with pytest.raises(ValueError, match="head dim 96"):
             PK.check_head_dim(96, "flash_attention", head_dims)

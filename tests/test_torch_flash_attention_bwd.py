@@ -70,6 +70,28 @@ def test_ref_bwd_matches_reference_vjp(dtype, s, hq, hkv, causal):
         assert _rel(g.float().numpy(), jnp.asarray(w, jnp.float32)) < tol
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv", [(128, 2, 2), (200, 4, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ref_bwd_hd112_matches_reference_vjp(dtype, s, hq, hkv, causal):
+    """Head dim 112 (zamba2-7b's shared attention): `ref.attention_bwd`
+    against the vjp of the reference's ``ref.attention``, S 128 and a
+    ragged S 200, G 1 and G 2."""
+    _, jdt, tdt, tol = DTYPES[dtype]
+    q, k, v, do = _inputs(s + 112, 1, s, hq, hkv, 112)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b_, c: RR.attention(a, b_, c,
+                                                   causal=causal)[0],
+                     jq, jk, jv)
+    want = vjp(jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    o, lse = PR.attention(tq, tk, tv, causal=causal)
+    got = PR.attention_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _rel(g.float().numpy(), jnp.asarray(w, jnp.float32)) < tol
+
+
 # (s, hq, hkv, causal, dtype): cases of tests/test_kernels.py's sweeps,
 # at S divisible by the reference's 64/128-row tiles
 OPS_CASES = [(128, 4, 2, True, "float32"), (64, 4, 4, False, "float32"),
@@ -97,6 +119,41 @@ def test_ops_grad_matches_reference_pallas(s, hq, hkv, causal, dtype):
     for g, w in zip(got, want):
         assert g.dtype == tdt
         assert _rel(g.float().numpy(), jnp.asarray(w, jnp.float32)) < tol
+
+
+@pytest.mark.parametrize("causal,dtype", [(True, "float32"),
+                                          (False, "float32"),
+                                          (True, "bfloat16")])
+def test_ops_grad_hd112_matches_reference_pallas(causal, dtype):
+    """Head dim 112 through `ops.flash_attention` (the autograd Function)
+    against jax.grad through the reference's custom_vjp, its Pallas
+    backward in interpret mode, at S 128 (a whole tile: the reference's
+    kernels skip ragged rows, ROADMAP queue 3), G 1 as in zamba2-7b."""
+    _, jdt, tdt, tol = DTYPES[dtype]
+    q, k, v, _ = _inputs(7, 1, 128, 2, 2, 112, layout="bshd")
+
+    def loss_ref(a, b_, c):
+        o = RO.flash_attention(a, b_, c, causal=causal)
+        return jnp.sum(o.astype(jnp.float32) ** 2)
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2))(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)))
+    ts = [torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    o = PO.flash_attention(*ts, causal=causal)
+    got = torch.autograd.grad((o.float() ** 2).sum(), ts)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and g.shape == (1, 128, 2, 112)
+        assert _rel(g.float().numpy(), jnp.asarray(w, jnp.float32)) < tol
+
+
+def test_bwd_head_dims_hold_112():
+    """The backward's kernels are built for head dim 112, as the
+    forward's are; a dim neither is built for is refused."""
+    assert 112 in PK.BWD_HEAD_DIMS
+    assert PK.BWD_HEAD_DIMS == PK.FWD_HEAD_DIMS
+    PK.check_head_dim(112, "flash_attention_bwd", PK.BWD_HEAD_DIMS)
+    with pytest.raises(ValueError, match="head dim 96"):
+        PK.check_head_dim(96, "flash_attention_bwd", PK.BWD_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -189,7 +246,7 @@ def _tc_backward(q, k, v, o, lse, do, causal):
     return tuple(_bf16(x) for x in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("s,hq,hkv", [(1, 4, 2), (64, 4, 4), (130, 8, 2),
                                       (200, 4, 1)])
 @pytest.mark.parametrize("causal", [True, False])

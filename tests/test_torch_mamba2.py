@@ -4,8 +4,11 @@ carried state, and streamed step by step equal to one batched call),
 `ssd_sequential`, `ssd_chunked` (and its fallback to the sequential scan
 when the length is not a multiple of the chunk) and `mamba_block` (the
 reduced zamba2-7b's first layer, the reference's params carried over by
-`convert.params_from_reference`), each within 1e-5 of max |ref|; and the
-port's chunked SSD against its own sequential scan."""
+`convert.params_from_reference`), each within 1e-5 of max |ref|; the
+port's chunked SSD against its own sequential scan, and both scans'
+gradients at decays strong enough to overflow the reference's chunked
+scan (NaN there) against ``jax.grad`` through the reference's sequential
+scan."""
 import dataclasses
 
 import numpy as np
@@ -114,6 +117,39 @@ def test_ssd_chunked_equals_sequential(chunk):
     st_s, y_s = PM.ssd_sequential(*args)
     _close(y_c, y_s.numpy(), "y")
     _close(st_c, st_s.numpy(), "state")
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssd_chunked_strong_decay_gradients_finite(chunk):
+    """Decays summing to ~-500 within a chunk (exp of the masked-out
+    exponents above the diagonal overflows float32): the chunked scan's
+    values equal the reference's, and its gradients and the sequential
+    scan's are finite and equal to ``jax.grad`` of the same loss through
+    the reference's sequential scan (the reference's chunked gradients
+    are NaN there: it masks after its exp)."""
+    x, dt, la, bm, cm_, st = _ssd_inputs(5, s=32)
+    la = (la * 8).astype(np.float32)
+    ins = (x, dt, la, bm, cm_, st)
+    st_r, y_r = RM.ssd_chunked(*map(jnp.asarray, ins), chunk=chunk)
+    assert float(np.asarray(la).sum(1).min()) < -400
+
+    def ref_loss(*a):
+        state, y = RM.ssd_sequential(*a)
+        return (y ** 2).sum() + (state ** 2).sum()
+    want = jax.grad(ref_loss, argnums=tuple(range(6)))(
+        *map(jnp.asarray, ins))
+    for fn in (lambda *a: PM.ssd_chunked(*a, chunk=chunk),
+               PM.ssd_sequential):
+        ts = [t.requires_grad_() for t in _t(*ins)]
+        state, y = fn(*ts)
+        _close(y, y_r, "y")
+        _close(state, st_r, "state")
+        loss = (y ** 2).sum() + (state ** 2).sum()
+        got = torch.autograd.grad(loss, ts)
+        for name, g, w in zip(("x", "dt", "la", "B", "C", "state"), got,
+                              want):
+            assert torch.isfinite(g).all(), name
+            _close(g, w, f"grad {name}")
 
 
 @pytest.mark.parametrize("chunked", [True, False])
