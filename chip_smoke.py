@@ -4,7 +4,8 @@ on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
 the paper's tables and figures, the serving path whose captured traffic
 feeds it, the training paths (the transformer, the hybrid and the
 encoder-decoder families), the paper's Cascaded-IO datapath matmul and
-its benchmark, and RWKV-6 training.
+its benchmark, RWKV-6 training, and the cross-pod gradient sync of the
+data-parallel train step over ranks that share the card.
 
     python3 chip_smoke.py
 
@@ -256,7 +257,28 @@ and the script exits non-zero):
              training, the bf16 loss against the chunked path, within 1.5
              x the gap between the chunked and the sequential path (at
              least 1e-3).
-22. kernels  one JSON line: each kernel with its launches on its main
+22. pod_sync  the cross-pod sync and the data-parallel train step: 4
+             spawned ranks share the card on gloo (NCCL refuses two ranks
+             on one device), a ('pod',) DeviceMesh, every transfer of a
+             CUDA tensor staged through host memory (so no NVLink times);
+             no fallback: a rank that fails fails the spawn.  (c)
+             ``benchmarks/collective_schedules.measure`` on the card: the
+             wire bytes per rank exact (786432, 786432, 197376); (b) one
+             step's gradients of each rank's row through `tree_sync`
+             (cascaded, dedicated, cascaded_int8), timed, against their
+             float64 mean, which each rank forms alone from every row's
+             gradients: 1e-6 of each leaf's max, int8 within 6 x its
+             scale; (a) tinyllama-1.1b at
+             full width cut to 4 layers, float32, `train`'s sequence, one
+             row per rank, 2 steps through `make_train_step(..., mesh)`
+             in "auto", "cascaded", "dedicated" and cascaded + int8,
+             attn_impl "pallas" (flash forward 8 and backward 4 per step,
+             exact, per rank and mode): every rank the same losses, each
+             mode's within 2e-3 of auto's; cascaded and dedicated against
+             one process on the whole batch (loss and grad norm 1e-5, m
+             and v 5e-5 of each leaf's max, params 0.05 x the steps'
+             largest lr).
+23. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -495,6 +517,42 @@ RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 4, 2048, 6
 #: amplified as float32's is, stays far below it, and any float32 left
 #: in the witness would not.
 W64_TOL = 1e-8
+#: phase `pod_sync`: the cross-pod sync and the data-parallel train step
+#: over POD_RANKS spawned ranks that share the one card (NCCL refuses two
+#: ranks on one device: "Duplicate GPU detected"), on gloo, every transfer
+#: of a CUDA tensor staged through host memory
+#: (``collectives.stages_on_host``), so its wall times are not NVLink
+#: figures.  tinyllama-1.1b at full width cut to POD_LAYERS layers (every
+#: stacked leaf's leading dim divides by POD_RANKS and takes the ring; at 2
+#: it would take the fused sum), float32 compute (a single-process run on
+#: the whole batch then differs from the ranks' only in summation order,
+#: which bf16 rounding of two batch splits would swamp), one TRAIN_SEQ row
+#: per rank, POD_STEPS steps in each mode on `train`'s schedule (the
+#: launcher's: lr 3e-4, warmup 100)
+POD_RANKS, POD_LAYERS, POD_STEPS = 4, 4, 2
+#: (label, pcfg.cross_pod_sync, pcfg.grad_compression)
+POD_MODES = (("auto", "auto", "none"), ("cascaded", "cascaded", "none"),
+             ("dedicated", "dedicated", "none"),
+             ("cascaded_int8", "cascaded", "int8"))
+#: each mode's losses within POD_LOSS_TOL of "auto" (the reference's own
+#: bound, tests/test_collectives.py:130); `tree_sync` of one step's
+#: gradients within POD_SYNC_TOL of each leaf's max |float64 mean|
+#: (cascaded, dedicated; "auto" syncs as dedicated), int8 within 6 x its
+#: quantisation scale (max |g| over the ranks / 127, the reference test's)
+POD_LOSS_TOL = 2e-3
+POD_SYNC_TOL = 1e-6
+#: cascaded and dedicated against a single-process run of the same steps
+#: on the whole batch (the bounds of tests/test_torch_train.py): loss and
+#: grad norm rtol POD_REF_RTOL each step; m and v within POD_MV_TOL of each
+#: leaf's max; params within POD_PARAM_TOL x the steps' largest learning
+#: rate, an element whose single-process gradient is at most POD_NOISE of
+#: its leaf's max in a step excused and counted (its update's sign is
+#: float32 noise; as in tests/test_torch_train_families.py)
+POD_REF_RTOL, POD_MV_TOL, POD_PARAM_TOL, POD_NOISE = 1e-5, 5e-5, 0.05, 1e-5
+#: `collective_schedules`' wire bytes per rank, x (4, 2^17) float32: ring
+#: and fused 2(n-1)/n x 512 KiB; the int8 ring 6 hops x (32768 + 128)
+POD_WIRE = {"cascaded": 786432, "dedicated": 786432,
+            "cascaded_int8": 197376}
 
 
 def float64_mode():
@@ -515,6 +573,252 @@ def float64_mode():
                         **{k: up(v) for k, v in (kwargs or {}).items()})
 
     return Float64()
+
+
+def pod_rank(rank: int, world: int, init: str, out_dir: str,
+             t_spawn: float) -> None:
+    """One rank of phase `pod_sync`, in a spawned process, the card shared
+    with the others: its gloo process group, `pod_checks`, the results as
+    ``rank<r>.json`` in `out_dir`.  A failed check raises, which fails the
+    spawn and the phase.  `t_spawn` is the host's ``time.time()`` at the
+    spawn, from which the results' ``marks_s`` count."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    marks = {"started": time.time() - t_spawn}
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        res = pod_checks(rank, world, dev, marks, t_spawn)
+        pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def pod_checks(rank: int, world: int, dev, marks: dict,
+               t_spawn: float) -> dict:
+    """Phase `pod_sync`'s work in one rank of a ('pod',) mesh of `world`:
+    (c) `collective_schedules.measure`, its wire bytes exact; (b) one
+    step's gradients of this rank's row through `tree_sync` in each mode,
+    timed, against their float64 mean; (a) POD_STEPS
+    train steps through `make_train_step(..., mesh)` in each of POD_MODES
+    from seed-0 weights, the flash kernels' launch counters reset just
+    before each mode and read just after; rank 0 also runs the same steps
+    in one process on the whole batch and holds the cascaded and
+    dedicated states to it.  `marks` gets the seconds since `t_spawn`
+    at which each part ended."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import collective_schedules
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as C
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import axis_group, make_test_mesh
+    from repro_torch.models.common import flatten_paths
+    from repro_torch.train.step import (init_state, make_grad_fn,
+                                        make_train_step)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def mark(part):
+        sync()
+        marks[part] = time.time() - t_spawn
+
+    mesh = make_test_mesh((world,), ("pod",), device_type=dev.type)
+    group = axis_group(mesh, "pod")
+    out = {"rank": rank, "backend": dist.get_backend(group), "marks_s": marks}
+    mark("group")
+
+    # (c) the benchmark's rows, x on the card
+    rows = collective_schedules.measure(group, dev)
+    wire = {r["schedule"]: r["wire_bytes_per_dev"] for r in rows}
+    if wire != POD_WIRE:
+        raise RuntimeError(f"pod_sync: collective_schedules wire bytes "
+                           f"{wire}, want {POD_WIRE}")
+    out["schedules"] = rows
+    mark("schedules")
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=POD_LAYERS,
+                              dtype="float32")
+    pcfg = launch_train.PCFG
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, world, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()} for i in range(POD_STEPS)]
+    local = [C.local_batch(b, mesh) for b in batches]
+    grad_fn = make_grad_fn(cfg, pcfg)
+
+    # (b) tree_sync of step 0's gradients against their float64 mean,
+    # which every rank forms alone from the gradients of all the ranks'
+    # rows (no transfer: the witness does not lean on the collectives)
+    params = init_state(0, cfg, device=dev).params
+    _, g = grad_fn(params, local[0])
+    flat = flatten_paths(g)
+    names = sorted(flat)
+    mean64 = {k: flat[k].double() / world for k in names}
+    gmax = torch.stack([flat[k].abs().max() for k in names])
+    for j in range(world):
+        if j == rank:
+            continue
+        _, gj = grad_fn(params, {k: v[j:j + 1]
+                                 for k, v in batches[0].items()})
+        gj = flatten_paths(gj)
+        for k in names:
+            mean64[k] += gj[k].double() / world
+        gmax = torch.maximum(gmax, torch.stack([gj[k].abs().max()
+                                                for k in names]))
+        del gj
+    del params
+    gmax = gmax.cpu()
+    mark("witness")
+    out["tree_sync"] = {}
+    for mode in C.MODES:
+        log = C.CommLog()
+        dist.barrier(group)
+        sync()
+        t0 = time.perf_counter()
+        got = C.tree_sync(g, group, mode, log=log)
+        sync()
+        sec = time.perf_counter() - t0
+        got = flatten_paths(got)
+        worst = 0.0
+        for j, k in enumerate(names):
+            want = mean64[k].reshape(flat[k].shape)
+            err = float((got[k].double() - want).abs().max())
+            tol = (6 * float(gmax[j]) / 127 if mode == "cascaded_int8"
+                   else POD_SYNC_TOL * float(want.abs().max()))
+            if not err <= tol:
+                raise RuntimeError(f"pod_sync: tree_sync {mode} {k} is "
+                                   f"{err} from the float64 mean "
+                                   f"(tolerance {tol})")
+            worst = max(worst, err / tol)
+        out["tree_sync"][mode] = {
+            "seconds": sec, "worst_err_over_tol": worst, "ops": log.ops,
+            "hops": log.hops, "wire_bytes": log.wire_bytes,
+            "staged_bytes": log.staged_bytes}
+        del got
+    del g, flat, mean64
+    mark("tree_sync")
+
+    # (a) the train step over the ranks, in every mode
+    ref = pod_single_process(cfg, pcfg, batches, grad_fn, dev) \
+        if rank == 0 else None
+    dist.barrier(group)
+    mark("single_process")
+    out["train"] = {}
+    for label, sync_mode, comp in POD_MODES:
+        pc = dataclasses.replace(pcfg, cross_pod_sync=sync_mode,
+                                 grad_compression=comp)
+        step = make_train_step(cfg, pc, mesh, total=POD_STEPS)
+        state = init_state(0, cfg, device=dev)
+        sync()
+        fa_kernel.flash_attention_fwd.launches = 0
+        fa_kernel.flash_attention_bwd.launches = 0
+        losses, gnorms, step_s = [], [], []
+        for i in range(POD_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, local[i])
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+        launches = [fa_kernel.flash_attention_fwd.launches,
+                    fa_kernel.flash_attention_bwd.launches]
+        # per step: the forward once per layer and once more in its
+        # recompute (remat "full"), the backward once per layer
+        want = [POD_STEPS * 2 * cfg.n_layers, POD_STEPS * cfg.n_layers]
+        if launches != want:
+            raise RuntimeError(f"pod_sync: {label}: flash launches "
+                               f"{launches}, want {want}")
+        run = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+               "launches": launches}
+        if ref is not None and label in ("cascaded", "dedicated"):
+            run["vs_single_process"] = pod_compare(label, state, losses,
+                                                   gnorms, ref)
+        out["train"][label] = run
+        del state
+        mark(f"train_{label}")
+    auto = out["train"]["auto"]["losses"]
+    for label, run in out["train"].items():
+        gap = max(abs(a - b) for a, b in zip(run["losses"], auto))
+        if not gap <= POD_LOSS_TOL:
+            raise RuntimeError(f"pod_sync: {label} losses {run['losses']} "
+                               f"vs auto {auto}: {gap} > {POD_LOSS_TOL}")
+        run["loss_gap_to_auto"] = gap
+    if ref is not None:
+        out["single_process"] = {k: ref[k] for k in
+                                 ("losses", "grad_norms", "lrs", "seconds")}
+    return out
+
+
+def pod_single_process(cfg, pcfg, batches, grad_fn, dev) -> dict:
+    """`pod_checks`' single-process run: POD_STEPS steps of `cfg` from the
+    same seed-0 weights on the whole batch, no mesh; each step's gradient
+    read first (`grad_fn`) to mark the elements at most POD_NOISE of their
+    leaf's max.  Returns the final state, the marks, losses, grad norms
+    and the wall time."""
+    from repro_torch.models.common import flatten_paths
+    from repro_torch.train.step import init_state, make_train_step
+    t0 = time.perf_counter()
+    step = make_train_step(cfg, pcfg, total=POD_STEPS)
+    state = init_state(0, cfg, device=dev)
+    quiet, losses, gnorms, lrs = {}, [], [], []
+    for batch in batches:
+        _, g = grad_fn(state.params, batch)
+        for k, v in flatten_paths(g).items():
+            q = v.abs() <= POD_NOISE * v.abs().max()
+            quiet[k] = q if k not in quiet else quiet[k] | q
+        del g
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    return {"state": state, "quiet": quiet, "losses": losses,
+            "grad_norms": gnorms, "lrs": lrs,
+            "seconds": time.perf_counter() - t0}
+
+
+def pod_compare(label, state, losses, gnorms, ref) -> dict:
+    """A mode's state and metrics after POD_STEPS steps on the ranks
+    against the single-process run (`pod_single_process`); raises past
+    the POD_* bounds, returns the worst of each."""
+    from repro_torch.models.common import flatten_paths
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses + gnorms,
+                                               ref["losses"]
+                                               + ref["grad_norms"])]
+    worst = {"loss_gnorm_rel": max(rel)}
+    trees = {"params": (state.params, ref["state"].params),
+             "m": (state.opt.m, ref["state"].opt.m),
+             "v": (state.opt.v, ref["state"].opt.v)}
+    p_tol = POD_PARAM_TOL * max(ref["lrs"])
+    excused = 0
+    for part, (got, want) in trees.items():
+        got, want = flatten_paths(got), flatten_paths(want)
+        w_part = 0.0
+        for k, w in want.items():
+            d = (got[k] - w).abs()
+            if part == "params":
+                q = ref["quiet"][k]
+                excused += int((q & (d > p_tol)).sum())
+                err = float(d.masked_fill(q, 0).max()) / p_tol
+            else:
+                err = float(d.max()) / (POD_MV_TOL * float(w.abs().max()))
+            w_part = max(w_part, err)
+        worst[f"{part}_err_over_tol"] = w_part
+    worst["params_excused"] = excused
+    if not (worst["loss_gnorm_rel"] <= POD_REF_RTOL
+            and all(worst[f"{p}_err_over_tol"] <= 1.0 for p in trees)):
+        raise RuntimeError(f"pod_sync: {label} against the single-process "
+                           f"run: {worst}")
+    return worst
 
 
 #: each phase's seconds, in order
@@ -3330,6 +3634,75 @@ def main() -> int:
             f"apart), loss {loss_err32:.2e}; bf16 loss gap {gap16:.2e} (floor "
             f"{floor16:.2e})")
 
+    # ------------------------------------------------------------------
+    # the cross-pod gradient sync: ranks sharing the card
+    # ------------------------------------------------------------------
+    @phase("pod_sync")
+    def pod_sync():
+        import torch.multiprocessing as mp
+        # the earlier phases' cached blocks go back to the card for the
+        # ranks' four contexts
+        torch.cuda.empty_cache()
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            t0 = time.perf_counter()
+            mp.spawn(pod_rank, args=(POD_RANKS, f"file://{d}/init", d,
+                                     time.time()), nprocs=POD_RANKS)
+            spawn_s = time.perf_counter() - t0
+            ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
+                     for r in range(POD_RANKS)]
+        lead = ranks[0]
+        for r in ranks[1:]:
+            for label, run in r["train"].items():
+                if run["losses"] != lead["train"][label]["losses"]:
+                    raise RuntimeError(f"pod_sync: rank {r['rank']} {label} "
+                                       f"losses {run['losses']} vs rank 0's "
+                                       f"{lead['train'][label]['losses']}")
+        launches = {"flash": sum(run["launches"][0] for r in ranks
+                                 for run in r["train"].values()),
+                    "flash_bwd": sum(run["launches"][1] for r in ranks
+                                     for run in r["train"].values())}
+        st = {"ranks": POD_RANKS, "backend": lead["backend"],
+              "arch": TRAIN_ARCH, "n_layers": POD_LAYERS,
+              "dtype": "float32", "batch": POD_RANKS, "seq": TRAIN_SEQ,
+              "steps": POD_STEPS, "spawn_wall_s": spawn_s,
+              "schedules": lead["schedules"],
+              "tree_sync": lead["tree_sync"], "train": lead["train"],
+              "single_process": lead["single_process"],
+              "rank0_marks_s": lead["marks_s"],
+              "launches": launches, "card": smi}
+        print(json.dumps({"pod_sync": st}), flush=True)
+        sched = "; ".join(
+            f"{r['schedule']} {r['collective_ops']} ops, "
+            f"{r['wire_bytes_per_dev']} B, {r['wall_us_host']:.0f} us"
+            for r in st["schedules"])
+        syncs = ", ".join(f"{m} {t['seconds']:.2f} s ({t['hops']} hops, "
+                          f"{t['staged_bytes'] / 1e9:.2f} GB staged)"
+                          for m, t in st["tree_sync"].items())
+        trains = ", ".join(
+            f"{label} {run['losses'][-1]:.6f} ("
+            f"{sum(run['step_s']):.2f} s)" for label, run in
+            st["train"].items())
+        vs = {label: st["train"][label]["vs_single_process"]
+              for label in ("cascaded", "dedicated")}
+        return st, (
+            f"{POD_RANKS} ranks on one card over {st['backend']} (every "
+            f"transfer of a CUDA tensor staged through host memory: not "
+            f"NVLink times; {smi}); {TRAIN_ARCH} ({POD_LAYERS} layers, "
+            f"float32) B{POD_RANKS} x {TRAIN_SEQ}, {POD_STEPS} steps; "
+            f"final losses {trains}; against one process: "
+            + ", ".join(f"{label} loss/gnorm {v['loss_gnorm_rel']:.1e}, "
+                        f"params {v['params_err_over_tol']:.2f}, m "
+                        f"{v['m_err_over_tol']:.2f}, v "
+                        f"{v['v_err_over_tol']:.2f} of tolerance "
+                        f"({v['params_excused']} noise elements excused)"
+                        for label, v in vs.items())
+            + f"; tree_sync of one step's gradients: {syncs}; "
+            f"collective_schedules: {sched}; flash launches {launches}; "
+            f"rank 0's parts ended at (s since the spawn) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in
+                        st["rank0_marks_s"].items()))
+
     t_start = time.perf_counter()
     smi = card()
     build()
@@ -3352,6 +3725,7 @@ def main() -> int:
     pipe = pipe_parity()
     wkv = wkv_parity()
     rwkv_stats = train_rwkv()
+    pod_stats = pod_sync()
 
     @phase("kernels")
     def kernels():
@@ -3398,6 +3772,7 @@ def main() -> int:
             "train_launches": train_stats["launches"]["flash"],
             "train_hybrid_launches": hybrid_train["launches"]["flash"],
             "train_encdec_launches": encdec_train["launches"]["flash"],
+            "pod_sync_launches": pod_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
@@ -3422,6 +3797,7 @@ def main() -> int:
             "launches": train_stats["launches"]["flash_bwd"],
             "train_hybrid_launches": hybrid_train["launches"]["flash_bwd"],
             "train_encdec_launches": encdec_train["launches"]["flash_bwd"],
+            "pod_sync_launches": pod_stats["launches"]["flash_bwd"],
             "max_abs_err": bwd_err["max_abs"],
             "max_rel_err": bwd_err["max_rel"],
             **{k: bwd[k] for k in ("ms", "plain_ms", "library_ms",

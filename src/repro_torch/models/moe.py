@@ -10,8 +10,8 @@ reference's oracle and its path whenever there is no mesh, whatever
 einsums, as in the reference (no Pallas kernel there, none here).  The
 reference's ``shard_map`` expert parallelism (``_moe_shard_map``: experts
 sharded over the 'model' axis, a capacity buffer per rank, one psum of
-the output) has nothing to map to on one card and waits for the
-distribution slice (ROADMAP, Slice F); `capacity`, its buffer size, is
+the output) has nothing to map to on one card and waits for sharded
+'model' execution (ROADMAP, Slice F3); `capacity`, its buffer size, is
 kept.
 """
 from __future__ import annotations

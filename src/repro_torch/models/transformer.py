@@ -153,7 +153,11 @@ def _dense_layer(pl, x, positions, cfg, pcfg, cache=None):
 
 
 def embed_tokens(params, tokens, cfg):
-    return cm.cast(params["embed"]["tokens"], cfg)[tokens]
+    """The token table's rows, by ``F.embedding``: its backward on the CPU
+    adds each row's gradients in token order whatever the thread count,
+    where an indexing's (``index_put_`` with accumulate) adds them in the
+    threads' order and so varies from run to run."""
+    return F.embedding(tokens, cm.cast(params["embed"]["tokens"], cfg))
 
 
 def logits_fn(params, hidden, cfg):

@@ -31,7 +31,7 @@ at every site, so autograd sums their gradients over the sites.  Serving
 (prefill, decode) has no backward and no remat.
 
 Not here: the reference's sharding annotations (``cm.shard``,
-``cache_specs``), which are multi-device concerns (ROADMAP Slice F).
+``cache_specs``), which are multi-device concerns (ROADMAP Slice F3).
 
 Simplification vs. the published model (as in the reference): the shared
 block consumes the hidden state directly rather than concat(hidden,

@@ -19,7 +19,7 @@ is the path with ``/`` -> ``__`` plus ``.npy``.
 * **bounded** — keep_last prunes old steps.
 
 The reference's elastic reshard on restore (``mesh``/``shardings``) waits
-for Slice F (ROADMAP): here every leaf is restored onto its template
+for Slice F3 (ROADMAP): here every leaf is restored onto its template
 leaf's device and dtype.
 """
 from __future__ import annotations

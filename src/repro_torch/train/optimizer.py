@@ -4,7 +4,8 @@ float32 tensors, with the reference's formulas in its order (bias
 correction with ``step + 1``; decoupled decay added to the update before
 the learning rate scales it).  ``torch.optim.AdamW`` orders the
 operations differently and is not used.  The reference's sharding of m/v
-(ZeRO-3 over the mesh) waits for Slice F; on one card they are plain
+(ZeRO-3 over the 'data' axis) waits for Slice F3 (ROADMAP); on one
+card, and replicated on every rank of a 'pod' mesh, they are plain
 tensors beside the params.  Updates are functional: new tensors, the
 inputs unchanged."""
 from __future__ import annotations

@@ -3,12 +3,22 @@
 The step composes, in order:
   microbatch gradient accumulation (a loop)      [optional]
   -> value and gradient of the chunked-xent loss, by autograd
+  -> hierarchical cross-pod sync (cascaded ring / dedicated fused / int8
+     ring)  [a 'pod' mesh]
   -> global-norm clip -> AdamW update.
 
-On one card there is no cross-pod hop: ``pcfg.cross_pod_sync`` and
-``pcfg.grad_compression`` are inert, as on the reference's single-device
-path.  A mesh, and with it the sharded state (``state_specs``), waits for
-Slice F (ROADMAP) and raises.
+Without a mesh the step runs on one device.  With a mesh whose only axis
+of size > 1 is 'pod' (``launch.mesh``: a ``DeviceMesh`` over a process
+group, one rank per pod), params and optimizer state stay replicated on
+every rank, each rank takes its share of the global batch
+(``collectives.local_batch``), and the gradients go through
+``collectives.pod_sync_wrap`` before clip and AdamW, so every rank makes
+the same update.  The mode is ``pcfg.cross_pod_sync``; with it,
+``pcfg.grad_compression == "int8"`` selects the compressed ring.  "auto"
+is the backend's fused all-reduce of each gradient (as "dedicated"): its
+own schedule, as GSPMD's is in the reference.  Sharded 'data' and 'model' execution (FSDP,
+TP) waits for Slice F3 (ROADMAP); `state_specs` already computes its
+specs.
 """
 from __future__ import annotations
 
@@ -17,6 +27,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import collectives
+from repro_torch.core import partitioning as part
+from repro_torch.core.comm import axis_sizes
 from repro_torch.models import get_model
 from repro_torch.models.common import flatten_paths, map_tree, unflatten_paths
 from repro_torch.train.losses import chunked_lm_loss, clip_by_global_norm
@@ -37,6 +50,14 @@ def init_state(seed, cfg: ModelConfig, device="cuda") -> TrainState:
     dev = flatten_paths(params)["embed.tokens"].device
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       params=params, opt=adamw_init(params))
+
+
+def state_specs(state: TrainState, mesh) -> TrainState:
+    """Specs for a TrainState (params and AdamW moments mirror the param
+    rules)."""
+    pspecs = part.param_specs(state.params, mesh)
+    return TrainState(step=(), params=pspecs,
+                      opt=AdamWState(m=pspecs, v=pspecs))
 
 
 def make_grad_fn(cfg: ModelConfig, pcfg: ParallelConfig):
@@ -89,12 +110,18 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh=None, *,
                     adamw: AdamWConfig = AdamWConfig(), clip: float = 1.0,
                     microbatch: int = 0):
     """(state, batch) -> (state', metrics).  The batch's leaves may be
-    numpy arrays or tensors; they go to the state's device."""
+    numpy arrays or tensors; they go to the state's device.  With a 'pod'
+    mesh, `batch` is this rank's share of the global batch and the loss
+    and metrics are the mean over the ranks."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: a mesh (sharded state, cross-pod sync, "
-            "gradient compression) waits for Slice F (ROADMAP); pass "
-            "mesh=None for one card")
+        wide = sorted(a for a, n in axis_sizes(mesh).items()
+                      if n > 1 and a != "pod")
+        if wide:
+            raise NotImplementedError(
+                f"make_train_step: mesh axes {wide} of size > 1: sharded "
+                f"'data' and 'model' execution (FSDP, TP) waits for Slice "
+                f"F3 (ROADMAP); meshes whose only axis of size > 1 is "
+                f"'pod' train here")
     grad_fn = make_grad_fn(cfg, pcfg)
     schedule = warmup_cosine(lr, warmup, total)
 
@@ -115,11 +142,15 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh=None, *,
         return (loss, metrics), grads
 
     base = grad_accum_fn if microbatch else grad_fn
+    mode = pcfg.cross_pod_sync
+    if mode != "auto" and pcfg.grad_compression == "int8":
+        mode = "cascaded_int8"
+    synced = collectives.pod_sync_wrap(base, mesh, mode=mode)
 
     def train_step(state: TrainState, batch):
         dev = state.step.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        (loss, metrics), grads = base(state.params, batch)
+        (loss, metrics), grads = synced(state.params, batch)
         grads, gnorm = clip_by_global_norm(grads, clip)
         lr_t = schedule(state.step)
         params, opt = adamw_update(grads, state.opt, state.params, lr_t,

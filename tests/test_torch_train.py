@@ -241,9 +241,12 @@ def test_remat_full_equals_none():
 
 
 def test_mesh_raises():
+    """A mesh with 'data' or 'model' > 1 (FSDP, TP) waits for Slice F3;
+    pod-only meshes train (tests/test_torch_train_pod.py)."""
+    from repro_torch.launch.mesh import make_test_mesh
     _, cfg = _cfgs("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        make_train_step(cfg, PCFG, mesh=object())
+    with pytest.raises(NotImplementedError, match="Slice F3"):
+        make_train_step(cfg, PCFG, mesh=make_test_mesh((2, 2)))
 
 
 def test_forward_remat_keeps_serving_path():
@@ -332,8 +335,13 @@ def test_launcher_smoke_on_cpu(capsys):
     assert launch_train.PCFG.remat == "full"
 
 
-def test_launcher_distributed_raises():
-    with pytest.raises(NotImplementedError, match="Slice F"):
+def test_launcher_distributed_raises(monkeypatch):
+    """--distributed outside torchrun (no RANK, WORLD_SIZE, ...) raises;
+    under torchrun it trains (tests/test_torch_train_pod.py)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         launch_train.main(["--arch", "tinyllama-1.1b", "--smoke",
                            "--distributed", "--device", "cpu"])
 
