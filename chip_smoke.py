@@ -4,8 +4,9 @@ on one NVIDIA GPU, end to end, and check it: the cycle simulator's sweep,
 the paper's tables and figures, the serving path whose captured traffic
 feeds it, the training paths (the transformer, the hybrid and the
 encoder-decoder families), the paper's Cascaded-IO datapath matmul and
-its benchmark, RWKV-6 training, and the cross-pod gradient sync of the
-data-parallel train step over ranks that share the card.
+its benchmark, RWKV-6 training, the cross-pod gradient sync of the
+data-parallel train step over ranks that share the card, and serving on
+a ('data', 'model') mesh of the same ranks.
 
     python3 chip_smoke.py
 
@@ -197,13 +198,14 @@ and the script exits non-zero):
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
 17. train_hybrid  the hybrid family trained the same way and held the same
-             way (`train_checked`): serve_hybrid's zamba2-7b cut (full
-             width, 15 of 81 layers: two groups, each with its shared
-             block's site, and a 3-layer tail; bf16 compute, float32
-             master weights, m and v, the SSM leaves included), `train`'s
-             batches (`SyntheticLM` seed 0, 4 x 2048), 6 steps; per step
-             the forward kernel 4 times (2 sites, each again in its
-             recompute) and the backward twice, all at hd 112.
+             way (`train_checked`): zamba2-7b at full width cut to 9 of
+             81 layers (one group with its shared block's site and a
+             3-layer tail; cut below serve_hybrid's 15 for the time
+             budget; bf16 compute, float32 master weights, m and v, the
+             SSM leaves included), `train`'s batches (`SyntheticLM` seed
+             0, 4 x 2048), 6 steps; per step the forward kernel twice
+             (the site, again in its recompute) and the backward once,
+             all at hd 112.
 18. train_encdec  whisper-base at its full size, batches of 8 x 448
              decoder tokens over 1500 frames from `make_batch`, 6 steps,
              held the same way; per step the forward kernel 12 times and
@@ -243,10 +245,10 @@ and the script exits non-zero):
              gradients equal, bit for bit, whichever forward ran.
 21. train_rwkv  rwkv6-3b at full width (d 2560, 40 heads of 64, d_ff
              8960, vocab 65536, bf16 compute, float32 master weights) cut
-             to 4 of its 32 layers, random weights from seed 0,
-             `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
+             to 2 of its 32 layers, random weights from
+             seed 0, `SyntheticLM` seed 0, batch 4 x 2048, 6 steps through
              `launch/train.py`'s functions (attn_impl "pallas", remat
-             "full"): exactly 8 wkv6 launches per step (4 layers + their
+             "full"): exactly 4 wkv6 launches per step (2 layers + their
              recomputes); first a float32 replay of one step from the
              initial weights of the same model cut to 1 layer
              (RWKV_REPLAY_LAYERS): the loss against the kernel's plain version
@@ -278,7 +280,29 @@ and the script exits non-zero):
              one process on the whole batch (loss and grad norm 1e-5, m
              and v 5e-5 of each leaf's max, params 0.05 x the steps'
              largest lr).
-23. kernels  one JSON line: each kernel with its launches on its main
+23. serve_mesh  serving on a (2, 2) ('data', 'model') mesh, inside
+             pod_sync's 4 ranks (its seconds are in pod_sync's; this
+             phase prints the ranks' results): tinyllama-1.1b under MLR
+             and SLR and granite-moe-3b-a800m under MLR (experts over
+             'model', capacity factor 40 so no assignment is dropped, as
+             the one-process dense FFN drops none), full width cut to 2
+             layers, 8 x 64 prompt tokens + 16 greedy, attn_impl "pallas",
+             through ``Engine(..., mesh=...)``, bf16, and float32 (a
+             float32 cache) with 8 new tokens (for the budget); per rank
+             and run the flash launches 2 and decode and its combine 2 x
+             15 (float32 2 x 7), exact, each on the rank's own
+             heads (MLR: 16/2 of tinyllama's 32/4, 12/4 of granite's
+             24/8), and the decode steps' CommLog bytes and calls equal to
+             ``serve_policies.decode_comm``; rank 0 gathers every run's
+             logits, tokens and routing and holds them to one process's
+             `Engine` on the same params and batch: float32 logits within
+             1e-5 of each step's max |logit| at every position no router
+             flip and no earlier token difference reaches, tokens equal
+             but at near-ties (bf16: top-2 gap within 0.1) or after a
+             flip (in bf16 the MoE's one process takes the mesh run's
+             experts, so none flips); per-step wall and staged bytes
+             (loopback and PCIe, not NVLink: no limit).
+24. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -296,6 +320,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -448,9 +473,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 RESUME_LAYERS = 2
 #: phase `train_encdec`: whisper-base at its full size, batches of 8 x 448
 #: decoder tokens (whisper's published text context) over 1500 frames
-#: from `make_batch`, 6 steps; phase `train_hybrid` trains serve_hybrid's
-#: zamba2-7b cut (HYBRID_LAYERS) on `train`'s batches
+#: from `make_batch`, 6 steps; phase `train_hybrid` trains zamba2-7b at
+#: full width cut to TRAIN_HYBRID_LAYERS (one group with its shared-block
+#: site and a 3-layer tail; below serve_hybrid's 15, for the time budget
+#: beside `serve_mesh`) on `train`'s batches
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448
+TRAIN_HYBRID_LAYERS = 9
 #: float32 replay, kernels against their plain versions: the loss to this
 #: relative error, every gradient leaf to this fraction of its max |g|
 #: (only summation order differs: H100 runs measured 1.2e-7 and 7.0e-7)
@@ -492,11 +520,12 @@ WKV_STRONG = (((2, 3, 128, 32), 64), ((2, 3, 128, 32), 16),
               ((4, 40, 2048, 64), 64))
 #: the training config and run of phase `train_rwkv`: rwkv6-3b at full
 #: width (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) with its depth
-#: cut from 32 layers to 4 (full depth holds 36.9 GB of float32 params,
+#: cut from 32 layers to 2 (full depth holds 36.9 GB of float32 params,
 #: m and v, twice that during the out-of-place AdamW update: more than
-#: one card's 80 GB; 4 keeps the script within its time budget)
+#: one card's 80 GB; 2 keeps the script within its time budget beside
+#: `serve_mesh`)
 RWKV_ARCH = "rwkv6-3b"
-RWKV_LAYERS = 4
+RWKV_LAYERS = 2
 #: the float32 replay and its float64 witness run a model of the same
 #: width, batch and sequence cut to 1 layer (RWKV-6's layers are all of
 #: one kind, so one holds every operation of the model): the witness is
@@ -555,6 +584,33 @@ POD_WIRE = {"cascaded": 786432, "dedicated": 786432,
             "cascaded_int8": 197376}
 
 
+#: phase `serve_mesh`: serving on a (2, 2) ('data', 'model') mesh carved
+#: from `pod_sync`'s POD_RANKS spawned ranks (the card shared over gloo,
+#: every transfer host-staged): SM_BATCH requests of SM_PROMPT prompt
+#: tokens, SM_NEW greedy new tokens, attn_impl "pallas", through
+#: ``Engine(..., mesh=...)``, per arch the depth of SM_LAYERS (full width)
+#: and its policies; each run bf16 and float32 (a float32 cache), held on
+#: rank 0 against one process's `Engine` on the same params and batch
+SM_MESH = ((2, 2), ("data", "model"))
+SM_BATCH, SM_PROMPT, SM_NEW, SM_MAX_SEQ = 8, 64, 16, 128
+#: new tokens of the float32 runs, for the budget: every step gathers
+#: twice the bf16 run's bytes (one NVIDIA H100 80GB HBM3 at 700 W, a slow
+#: host: 60.0 s for the phase with 16)
+SM_NEW_F32 = 8
+#: (arch, layers, policies): 2 layers, for the budget (every decode step
+#: gathers each layer's weights over 'data', host-staged: ~0.35 GB/s per
+#: rank with four ranks on the card)
+SM_RUNS = ((SERVE_ARCH, 2, ("mlr", "slr")), (MOE_ARCH, 2, ("mlr",)))
+#: float32 decode logits against one process: this fraction of each
+#: step's max |logit|, at every (request, step) that no router flip and no
+#: earlier token difference reaches
+SM_LOGIT_TOL = 1e-5
+#: a bf16 token may differ from one process's only where that process's
+#: top-2 logit gap is within this (twice phase `serve`'s bf16 bound), or
+#: after a router flip in its request
+SM_NEAR_TIE = 2 * SERVE_TOL
+
+
 def float64_mode():
     """A torch dispatch mode that runs float32 work in float64: every
     float32 dtype argument of an ATen op (``.float()``, ``.to``, the
@@ -596,6 +652,8 @@ def pod_rank(rank: int, world: int, init: str, out_dir: str,
                             timeout=datetime.timedelta(seconds=600))
     try:
         res = pod_checks(rank, world, dev, marks, t_spawn)
+        res["serve_mesh"] = serve_mesh_checks(rank, world, dev, marks,
+                                              t_spawn)
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -819,6 +877,267 @@ def pod_compare(label, state, losses, gnorms, ref) -> dict:
         raise RuntimeError(f"pod_sync: {label} against the single-process "
                            f"run: {worst}")
     return worst
+
+
+class Float32Cache:
+    """A model module whose ``init_cache`` makes every float tensor of the
+    cache float32: a float32 run held to 1e-5 without the bf16 cache's
+    rounding, which turns float32 summation-order noise into whole bf16
+    steps."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def init_cache(self, *args, **kw):
+        import torch
+        return {k: v.float() if torch.is_tensor(v) and v.is_floating_point()
+                else v for k, v in self._model.init_cache(*args, **kw).items()}
+
+
+def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
+                      t_spawn: float) -> dict:
+    """Phase `serve_mesh`'s work in one rank of `pod_sync`'s spawn: for
+    each of SM_RUNS, full width from seed-0 weights on the card, every
+    policy through ``Engine(..., mesh=...)`` on a SM_MESH mesh, bf16 and
+    float32; the kernels' launch counters reset just before each run and
+    read just after (flash once per layer, decode and its combine once
+    per layer and step: exact, per rank), the q / KV heads of every
+    launch (this rank's share under MLR), the decode steps' CommLog
+    against ``serve_policies.decode_comm`` (exact), each step's wall time
+    and staged bytes.  Rank 0 gathers every run's logits, tokens and
+    routing and holds them to one process's `Engine` (`sm_compare`); in
+    bf16 a MoE's one-process run takes the mesh run's experts (as
+    serve_moe's plain paths take the kernel path's: bf16 rounding of the
+    ranks' sums flips near-tie routes in every request), its weights its
+    own probabilities at them."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.core.comm import axis_sizes
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    torch.cuda.empty_cache()
+    mesh = make_test_mesh(*SM_MESH, device_type=dev.type)
+    sizes = axis_sizes(mesh)
+    heads, routes = [], []
+    orig = (fa_ops.flash_attention, dec_ops.decode_attention, moe.route)
+
+    def flash(q, k, v, **kw):
+        heads.append(("flash", q.shape[2], k.shape[2]))
+        return orig[0](q, k, v, **kw)
+
+    def decode(q, k_cache, v_cache, lengths):
+        heads.append(("decode", q.shape[2], k_cache.shape[2]))
+        return orig[1](q, k_cache, v_cache, lengths)
+
+    forced = []
+
+    def route(x, w, cfg):
+        top_w, top_ids, aux = orig[2](x, w, cfg)
+        if forced:                      # the mesh run's experts
+            top_ids = forced.pop(0).to(top_ids.dtype)
+            probs = torch.softmax(x.float() @ w.float(), dim=-1)
+            top_w = probs.gather(-1, top_ids)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        routes.append(top_ids.sort(-1).values)
+        return top_w, top_ids, aux
+
+    fa_ops.flash_attention, dec_ops.decode_attention, moe.route = \
+        flash, decode, route
+    import numpy as np
+    prompt = np.random.default_rng(3).integers(0, 32000, (SM_BATCH,
+                                                          SM_PROMPT))
+    out = {}
+    try:
+        for arch, layers, policies in SM_RUNS:
+            base = dataclasses.replace(get_config(arch), n_layers=layers)
+            if base.moe.n_experts:          # every assignment kept, as the
+                base = dataclasses.replace(  # one-process dense FFN keeps
+                    base, moe=dataclasses.replace(
+                        base.moe, capacity_factor=float(base.moe.n_experts)))
+            params = transformer.init(0, base, device=dev)
+            batch = {"tokens": torch.from_numpy(
+                prompt % base.vocab_size).to(torch.int32)}
+            pcfg = ParallelConfig(attn_impl="pallas", moe_impl="shard_map",
+                                  remat="none")
+            for dtype in ("bfloat16", "float32"):
+                cfg = dataclasses.replace(base, dtype=dtype)
+                for policy in policies + ("one",):
+                    if policy == "one" and rank != 0:
+                        continue
+                    one = policy == "one"
+                    eng = Engine(cfg, pcfg, ServeConfig(
+                        max_seq=SM_MAX_SEQ, policy="mlr" if one else policy),
+                        params, mesh=None if one else mesh, device=dev)
+                    if dtype == "float32":
+                        eng.model = Float32Cache(eng.model)
+                    logits, steps = [], []
+                    for name in ("prefill_fn", "decode_fn"):
+                        def rec(*a, _fn=getattr(eng, name), **kw):
+                            cache, lg = _fn(*a, **kw)
+                            logits.append(lg[:, -1].float())
+                            return cache, lg
+                        setattr(eng, name, rec)
+
+                    def observer(kind, *, done, lengths, _eng=eng):
+                        sync()
+                        log = _eng.log
+                        steps.append((time.perf_counter(),
+                                      log.wire_bytes if log else 0,
+                                      log.staged_bytes if log else 0,
+                                      log.ops if log else 0))
+
+                    heads.clear()
+                    routes.clear()
+                    if one and dtype == "bfloat16" and cfg.moe.n_experts:
+                        forced[:] = out[f"{arch}|{dtype}|mlr"]["_keep"][2]
+                    sync()
+                    fa_kernel.flash_attention_fwd.launches = 0
+                    dec_kernel.decode_attention.launches = 0
+                    dec_kernel.decode_attention.combine_launches = 0
+                    t0 = time.perf_counter()
+                    new = SM_NEW if dtype == "bfloat16" else SM_NEW_F32
+                    toks = eng.generate(batch, new, observer=observer)
+                    sync()
+                    wall = time.perf_counter() - t0
+                    launches = [fa_kernel.flash_attention_fwd.launches,
+                                dec_kernel.decode_attention.launches,
+                                dec_kernel.decode_attention.combine_launches]
+                    label = f"{arch}|{dtype}|{policy}"
+                    run = sm_run_stats(label, cfg, policy, sizes, launches,
+                                       heads, steps, wall, new)
+                    lg = torch.stack(logits)               # (steps, B_l, V)
+                    rt = list(routes)
+                    if not one:                   # the whole batch, rank 0
+                        ctx = eng.ctx
+                        lg = ctx.gather(lg, 1, ctx.batch_axes)
+                        blk = moe._reference_block_axes(ctx, SM_BATCH)
+                        rt = [ctx.gather(r, 0, blk) for r in rt]
+                    if rank == 0:
+                        run["_keep"] = (toks, lg, rt)
+                    out[label] = run
+                    del eng, lg, rt
+                    torch.cuda.empty_cache()
+            if rank == 0:
+                for dtype in ("bfloat16", "float32"):
+                    want = out[f"{arch}|{dtype}|one"].pop("_keep")
+                    for policy in policies:
+                        run = out[f"{arch}|{dtype}|{policy}"]
+                        run["vs_one_process"] = sm_compare(
+                            f"{arch}|{dtype}|{policy}", run.pop("_keep"),
+                            want, dtype, layers)
+            del params
+            torch.cuda.empty_cache()
+            marks[f"serve_mesh_{arch}"] = time.time() - t_spawn
+    finally:
+        fa_ops.flash_attention, dec_ops.decode_attention, moe.route = orig
+    return out
+
+
+def sm_run_stats(label, cfg, policy, sizes, launches, heads, steps,
+                 wall, new) -> dict:
+    """One `serve_mesh` run's checks on its rank: launches exact, every
+    launch on this rank's heads (MLR: the q and KV heads over 'model'),
+    the decode steps' wire bytes and calls equal to
+    ``serve_policies.decode_comm``; its times and staged bytes."""
+    from repro_torch.benchmarks import serve_policies
+    n = cfg.n_layers
+    want = [n, n * (new - 1), n * (new - 1)]
+    if launches != want:
+        raise RuntimeError(f"serve_mesh: {label}: launches (flash, decode, "
+                           f"combine) {launches}, want {want}")
+    tp = sizes["model"] if policy == "mlr" else 1
+    want_heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+    if any(h[1:] != want_heads for h in heads) or len(heads) != sum(
+            launches[:2]):
+        raise RuntimeError(f"serve_mesh: {label}: kernel calls on heads "
+                           f"{sorted(set(heads))}, want {want_heads}")
+    dec = [tuple(y - x for x, y in zip(a, b))
+           for a, b in zip(steps, steps[1:])]
+    run = {"launches": launches, "heads": list(want_heads), "wall_s": wall,
+           "step_ms": [1e3 * d[0] for d in dec]}
+    if policy != "one":
+        wire, ops = serve_policies.decode_comm(cfg, sizes, SM_BATCH, policy)
+        got = {(d[1], d[3]) for d in dec}
+        if got != {(wire, ops)}:
+            raise RuntimeError(f"serve_mesh: {label}: decode steps' (wire "
+                               f"bytes, calls) {sorted(got)}, the schedule "
+                               f"says {(wire, ops)}")
+        run.update(wire_bytes_per_tok=wire / SM_BATCH, calls_per_step=ops,
+                   staged_bytes_per_step=dec[0][2])
+    return run
+
+
+def sm_compare(label, got, want, dtype, layers) -> dict:
+    """A mesh run (tokens, each step's logits and each route call's sorted
+    top ids, the whole batch) against one process's: the requests whose
+    routing differed (a flip reaches every later position of its request)
+    counted from their first flip; float32: every (request, step) before
+    a flip and before the first token difference within SM_LOGIT_TOL of
+    the step's max |logit|, tokens equal but where a flip reaches; bf16:
+    tokens equal up to the first difference of each request, which must
+    be a near-tie of one process (top-2 gap <= SM_NEAR_TIE) or after a
+    flip.  Raises past them; returns the worst gap and the counts."""
+    import torch
+    toks, lg, rt = got
+    wtoks, wlg, wrt = want
+    b, n = toks.shape
+    flip = [SM_PROMPT + n] * b          # first position a flip reaches
+    for j, (r, w) in enumerate(zip(rt, wrt)):
+        call = j // layers              # 0: prefill, t: decode step t
+        diff = (r != w).any(-1).reshape(b, -1).cpu()
+        for lane in range(b):
+            hit = torch.nonzero(diff[lane]).flatten()
+            if len(hit):
+                pos = int(hit[0]) + (0 if call == 0 else SM_PROMPT + call - 1)
+                flip[lane] = min(flip[lane], pos)
+    worst, held, excused, ties = 0.0, 0, 0, 0
+    for lane in range(b):
+        for t in range(n):
+            pos = SM_PROMPT - 1 + t     # the position step t's logits read
+            same = bool((toks[lane, :t] == wtoks[lane, :t]).all())
+            if not same or pos >= flip[lane]:
+                excused += 1
+                continue
+            if dtype == "float32":
+                gap = float((lg[t, lane] - wlg[t, lane]).abs().max())
+                scale = float(wlg[t].abs().max())
+                if not gap <= SM_LOGIT_TOL * scale:
+                    raise RuntimeError(f"serve_mesh: {label}: request "
+                                       f"{lane} step {t} logits {gap} from "
+                                       f"one process's (tolerance "
+                                       f"{SM_LOGIT_TOL} x {scale})")
+                worst = max(worst, gap / scale)
+            if toks[lane, t] != wtoks[lane, t]:
+                top2 = wlg[t, lane].topk(2).values
+                tie = SM_NEAR_TIE if dtype != "float32" else \
+                    2 * SM_LOGIT_TOL * float(wlg[t].abs().max())
+                if float(top2[0] - top2[1]) > tie:
+                    raise RuntimeError(f"serve_mesh: {label}: request "
+                                       f"{lane} step {t} token "
+                                       f"{int(toks[lane, t])} vs one "
+                                       f"process's {int(wtoks[lane, t])} "
+                                       f"(top-2 gap {float(top2[0] - top2[1])})")
+                ties += 1
+            held += 1
+    return {"worst_logit_gap_over_max": worst if dtype == "float32"
+            else "not held (bf16: tokens)", "positions_held": held,
+            "positions_after_a_flip_or_token_difference": excused,
+            "near_tie_token_differences": ties,
+            "requests_with_router_flips": sum(f < SM_PROMPT + n
+                                              for f in flip)}
 
 
 #: each phase's seconds, in order
@@ -2998,7 +3317,7 @@ def main() -> int:
     @phase("train_hybrid")
     def train_hybrid():
         cfg = dataclasses.replace(get_config(HYBRID_ARCH),
-                                  n_layers=HYBRID_LAYERS)
+                                  n_layers=TRAIN_HYBRID_LAYERS)
         data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
         st = train_checked("train_hybrid", cfg, data, TRAIN_STEPS,
                            lambda c: device_batch(data.batch(0)))
@@ -3651,6 +3970,8 @@ def main() -> int:
             spawn_s = time.perf_counter() - t0
             ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
                      for r in range(POD_RANKS)]
+        # the same ranks' serving on a ('data', 'model') mesh: its own phase
+        shared["serve_mesh"] = [r.pop("serve_mesh") for r in ranks]
         lead = ranks[0]
         for r in ranks[1:]:
             for label, run in r["train"].items():
@@ -3704,6 +4025,7 @@ def main() -> int:
                         st["rank0_marks_s"].items()))
 
     t_start = time.perf_counter()
+    shared: dict = {}
     smi = card()
     build()
     golden()
@@ -3726,6 +4048,64 @@ def main() -> int:
     wkv = wkv_parity()
     rwkv_stats = train_rwkv()
     pod_stats = pod_sync()
+
+    # ------------------------------------------------------------------
+    # serving on a ('data', 'model') mesh: pod_sync's ranks
+    # ------------------------------------------------------------------
+    @phase("serve_mesh")
+    def serve_mesh():
+        ranks = shared.pop("serve_mesh")
+        marks = pod_stats["rank0_marks_s"]
+        started = marks[f"train_{POD_MODES[-1][0]}"]
+        rank_s = marks[f"serve_mesh_{SM_RUNS[-1][0]}"] - started
+        launches = {"flash": sum(run["launches"][0] for r in ranks
+                                 for k, run in r.items()
+                                 if not k.endswith("|one")),
+                    "decode": sum(run["launches"][1] for r in ranks
+                                  for k, run in r.items()
+                                  if not k.endswith("|one")),
+                    "decode_combine": sum(run["launches"][2] for r in ranks
+                                          for k, run in r.items()
+                                          if not k.endswith("|one"))}
+        st = {"ranks": POD_RANKS, "mesh": SM_MESH,
+              "backend": pod_stats["backend"], "batch": SM_BATCH,
+              "prompt": SM_PROMPT,
+              "new": {"bfloat16": SM_NEW, "float32": SM_NEW_F32},
+              "runs": {a: {"layers": n, "policies": p}
+                       for a, n, p in SM_RUNS},
+              "rank0": ranks[0], "per_rank_launches": [
+                  {k: run["launches"] for k, run in r.items()}
+                  for r in ranks],
+              "launches": launches, "seconds_in_ranks": rank_s,
+              "card": smi}
+        print(json.dumps({"serve_mesh": st}), flush=True)
+        rows = []
+        for label, run in ranks[0].items():
+            if label.endswith("|one"):
+                continue
+            vs = run["vs_one_process"]
+            gap = vs["worst_logit_gap_over_max"]
+            rows.append(
+                f"{label}: {statistics.median(run['step_ms']):.1f} ms/step "
+                f"(median), {run['wire_bytes_per_tok']:.4g} B/tok on the "
+                f"wire ({run['calls_per_step']} calls/step, "
+                f"{run['staged_bytes_per_step'] / 1e6:.1f} MB staged per "
+                f"step), " + (f"logits {gap:.2e} of max, "
+                              if isinstance(gap, float) else "")
+                + f"{vs['positions_held']} positions held, "
+                f"{vs['near_tie_token_differences']} near-tie tokens, "
+                f"{vs['requests_with_router_flips']} requests with router "
+                f"flips")
+        return st, (
+            f"{POD_RANKS} ranks of pod_sync's spawn on one card over "
+            f"{st['backend']} as a {SM_MESH[0]} {SM_MESH[1]} mesh (every "
+            f"transfer host-staged: loopback and PCIe, not NVLink; {smi}); "
+            f"{SM_BATCH} x {SM_PROMPT} + {SM_NEW} greedy (float32 "
+            f"{SM_NEW_F32}), held against one "
+            f"process: " + "; ".join(rows) + f"; launches {launches}; "
+            f"{rank_s:.1f} s inside the ranks (in pod_sync's time)")
+
+    sm_stats = serve_mesh()
 
     @phase("kernels")
     def kernels():
@@ -3773,6 +4153,7 @@ def main() -> int:
             "train_hybrid_launches": hybrid_train["launches"]["flash"],
             "train_encdec_launches": encdec_train["launches"]["flash"],
             "pod_sync_launches": pod_stats["launches"]["flash"],
+            "serve_mesh_launches": sm_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
@@ -3816,6 +4197,7 @@ def main() -> int:
             "serve_vlm_launches": vlm_stats["launches"]["decode"],
             "serve_hybrid_launches": hybrid_stats["launches"]["decode"],
             "serve_encdec_launches": encdec_stats["launches"]["decode"],
+            "serve_mesh_launches": sm_stats["launches"]["decode"],
             "max_abs_err": attn_err["decode"], **attn["decode"],
             "shape": "q (8,1,32,64), caches (8,512,4,64) bf16, lengths 288",
             "hd112": dict(attn["decode_hd112"],
@@ -3832,6 +4214,7 @@ def main() -> int:
                 hybrid_stats["launches"]["decode_combine"],
             "serve_encdec_launches":
                 encdec_stats["launches"]["decode_combine"],
+            "serve_mesh_launches": sm_stats["launches"]["decode_combine"],
             "max_abs_err": 0.0, **attn["combine"],
             "shape": f"partials of {attn['decode']['splits']} splits of the "
                      f"decode shape, float32 -> o bf16",

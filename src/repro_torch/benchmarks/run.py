@@ -1,8 +1,9 @@
 """Benchmark runner of the port (port of ``benchmarks/run.py``): one
 module per paper table/figure ported so far, the cross-pod sync's
-collective schedules (four ranks: NCCL on four cards with ``--device
-cuda``, or sharing one card on gloo, host-staged, where fewer are
-visible), plus the datapath matmul's benchmark.
+collective schedules and the MLR/SLR serving placements (four ranks
+each: NCCL on four cards with ``--device cuda``, or sharing one card on
+gloo, host-staged, where fewer are visible), plus the datapath matmul's
+benchmark.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run \
         [--smoke] [--only MOD ...] [--progress] [--device cuda|cpu]
@@ -35,6 +36,7 @@ BENCHES = [
     "repro_torch.benchmarks.paper_fig_scale",   # sweep-engine scaling
     "repro_torch.benchmarks.collective_schedules",  # cascaded vs dedicated
     "repro_torch.benchmarks.smla_pipe_bench",   # SMLA pipeline kernel
+    "repro_torch.benchmarks.serve_policies",    # MLR vs SLR placement
 ]
 
 

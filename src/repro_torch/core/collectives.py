@@ -119,9 +119,10 @@ def dedicated_all_gather(x, group, log: CommLog | None = None):
     (n, *x.shape) ordered by source rank."""
     n, _ = _n_rank(group)
     buf, staged = _fused(x, group, log, n - 1)   # (n-1)/n of n blocks
-    parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(parts, buf, group=group)
-    out = torch.stack(parts)
+    # the blocks land in place, in page-locked memory where staged
+    out = torch.empty((n,) + tuple(buf.shape), dtype=buf.dtype,
+                      device=buf.device, pin_memory=staged)
+    dist.all_gather(list(out.unbind(0)), buf, group=group)
     return out.to(x.device) if staged else out
 
 

@@ -6,7 +6,7 @@ the axis names (``launch.mesh`` builds it), or, with no process group, a
 rules read (``core/partitioning.py``).  `axis_sizes` reads either, and any
 object with ``axis_names`` and a ``shape`` mapping them to sizes, as a JAX
 mesh has; `axis_group` gives the process group a collective of one axis
-runs on.
+runs on, and `axis_coords` this rank's coordinate on each axis.
 
 `ring_hop` is the one point-to-point step of the rings of
 ``core/collectives.py`` and ``train/compression.py``.  gloo's
@@ -50,6 +50,20 @@ def axis_group(mesh, axis: str):
                          f"group; initialise torch.distributed before "
                          f"making the mesh")
     return mesh.get_group(axis)
+
+
+def axis_coords(mesh) -> dict[str, int]:
+    """{axis name: this rank's coordinate on it} of a ``DeviceMesh`` (the
+    reference's ``lax.axis_index`` of each axis); raises on a `MeshShape`,
+    which has no ranks."""
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        raise ValueError(f"axis_coords: {mesh!r} has no process group; "
+                         f"initialise torch.distributed before making the "
+                         f"mesh")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("axis_coords: this rank is not in the mesh")
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in coord)))
 
 
 @dataclasses.dataclass

@@ -13,6 +13,13 @@ trees of specs are nested dicts shaped as the trees they describe.  A mesh
 is anything `core.comm.axis_sizes` reads.  `placements` turns a spec on
 a ``DeviceMesh`` into DTensor placements.
 
+Sharded execution keeps plain local tensors: `local_shard` cuts a rank's
+block out of a global leaf under a filtered spec (`shard_tree` over a
+tree), and `assemble` puts the blocks of every rank back together (its
+inverse, for tests).  A dim sharded over several axes is cut with the
+first axis of its entry major, as JAX cuts it (and as `placements`
+requires them in the mesh's order).
+
 Scheme: Megatron TP over 'model', FSDP (params, grads and optimizer state
 sharded) over 'data', pure replication over 'pod' (gradients reduced
 across pods by ``core/collectives.py``).
@@ -23,8 +30,9 @@ import math
 import re
 from typing import Any
 
-from repro_torch.core.comm import axis_sizes
-from repro_torch.models.common import flatten_paths, map_tree, unflatten_paths
+from repro_torch.core.comm import axis_coords, axis_sizes
+from repro_torch.models.common import (block_index, entry_axes, flatten_paths,
+                                       map_tree, unflatten_paths)
 
 DP = ("pod", "data")
 FSDP = "data"          # parameter-sharding axis
@@ -173,3 +181,96 @@ def strip_axis(tree_of_specs: Any, axis: str = "model") -> Any:
                 out.append(e)
         return tuple(out)
     return map_tree(strip, tree_of_specs)
+
+
+# ----------------------------------------------------------------------------
+# local shards of global leaves
+# ----------------------------------------------------------------------------
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple[int, ...]:
+    """The shape of one rank's block of a leaf of `shape` under `spec` (a
+    filtered spec: every dim divides by its axes' sizes)."""
+    sizes = axis_sizes(mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, entry in zip(shape, entries):
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if dim % n:
+            raise ValueError(f"local_shape: dim {dim} of {tuple(shape)} does "
+                             f"not divide over {entry} ({n}); filter the "
+                             f"spec first")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def local_shard(leaf, spec: tuple, mesh, coord: dict | None = None):
+    """The block of the global `leaf` that the rank at `coord` ({axis:
+    index}; default: this rank's, `core.comm.axis_coords`) holds under the
+    filtered `spec`: a view, on the leaf's device."""
+    sizes = axis_sizes(mesh)
+    coord = axis_coords(mesh) if coord is None else coord
+    local = local_shape(tuple(leaf.shape), spec, mesh)
+    out = leaf
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes:
+            i, _ = block_index(axes, coord, sizes)
+            out = out.narrow(d, i * local[d], local[d])
+    return out
+
+
+def shard_tree(tree: Any, specs: Any, mesh, coord: dict | None = None) -> Any:
+    """`local_shard` over a tree and its tree of specs."""
+    coord = axis_coords(mesh) if coord is None else coord
+    return map_tree(lambda leaf, spec: local_shard(leaf, spec, mesh, coord),
+                    tree, specs)
+
+
+def mesh_coords(mesh) -> list[dict]:
+    """Every rank's coordinate of `mesh`, in row-major order."""
+    sizes = axis_sizes(mesh)
+    coords = [{}]
+    for a, n in sizes.items():
+        coords = [dict(c, **{a: i}) for c in coords for i in range(n)]
+    return coords
+
+
+def assemble(blocks: list, spec: tuple, mesh):
+    """The global leaf from every rank's block (`blocks[j]` the block of
+    ``mesh_coords(mesh)[j]``), the inverse of `local_shard`; raises where
+    two ranks that hold the same block disagree, or a block is missing."""
+    import torch
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh)
+    shape = list(blocks[0].shape)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    glob = [dim * math.prod(sizes[a] for a in entry_axes(e))
+            for dim, e in zip(shape, entries)]
+    out = torch.empty(glob, dtype=blocks[0].dtype)
+    seen = torch.zeros(glob, dtype=torch.bool)
+    for c, blk in zip(coords, blocks):
+        view, mask = out, seen
+        for d, e in enumerate(entries):
+            axes = entry_axes(e)
+            if axes:
+                i, _ = block_index(axes, c, sizes)
+                view = view.narrow(d, i * shape[d], shape[d])
+                mask = mask.narrow(d, i * shape[d], shape[d])
+        blk = blk.detach().cpu()
+        if bool(mask.any()) and not torch.equal(view, blk):
+            raise ValueError(f"assemble: ranks that share a block of {spec} "
+                             f"disagree (rank {c})")
+        view.copy_(blk)
+        mask.fill_(True)
+    if not bool(seen.all()):
+        raise ValueError(f"assemble: the blocks do not cover the leaf "
+                         f"({spec})")
+    return out
+
+
+def assemble_tree(trees: list, specs: Any, mesh) -> Any:
+    """`assemble` over trees of blocks, one per rank in `mesh_coords`
+    order."""
+    return map_tree(lambda spec, *blocks: assemble(list(blocks), spec, mesh),
+                    specs, *trees)

@@ -7,7 +7,12 @@ Every family module exposes the same functional API:
   init_cache(cfg, batch, max_seq, pcfg, device=...) -> cache
   prefill(params, batch, cache, cfg, pcfg) -> (cache, last_hidden (B,1,d))
   decode(params, tokens (B,1), cache, cfg, pcfg) -> (cache, logits (B,1,V))
-plus transformer.logits_fn for the LM head.  Every family of the
+  cache_specs(cfg, pcfg, long_ctx, model_size) -> {cache leaf: spec}
+plus transformer.logits_fn for the LM head.  The transformer's three
+families also run on a mesh (``mesh=``, a ``common.MeshContext``):
+their prefill, decode, init_cache and logits_fn take it; the other
+families' ``cache_specs`` raise, and `check_mesh` refuses them a mesh
+with an axis of size > 1.  Every family of the
 reference is ported: the transformer's three (dense, VLM with M-RoPE,
 MoE), RWKV6 (ssm), Zamba2 (hybrid: Mamba2 + a shared attention block)
 and Whisper (encdec).
@@ -30,6 +35,26 @@ _FAMILY = {
     "hybrid": zamba,
     "encdec": whisper,
 }
+
+
+#: the families that run sharded over 'data' and 'model'
+MESH_FAMILIES = ("dense", "vlm", "moe")
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> bool:
+    """True where `mesh` has an axis of size > 1 (a sharded run); raises
+    NotImplementedError where it does and `cfg`'s family has no sharded
+    path (rwkv, hybrid, encdec): such a run never goes on replicated."""
+    from repro_torch.core.comm import axis_sizes
+    if mesh is None:
+        return False
+    wide = sorted(a for a, n in axis_sizes(mesh).items() if n > 1)
+    if wide and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family on a mesh with axes "
+            f"{wide} of size > 1 waits for {transformer.MESH_TODO}; only "
+            f"{MESH_FAMILIES} run sharded")
+    return bool(wide)
 
 
 def get_model(cfg: ModelConfig):

@@ -8,16 +8,30 @@ number is the same as casting at each use.  Parameter trees are plain
 nested dicts whose flattened key paths match
 ``configs.base._param_shapes`` exactly.
 
-The reference's sharding helpers (``shard``, ``filter_spec``, the
-reshards inside ``embed_lookup``) have no counterpart here: on one card
-they are the identity.
+Sharded execution (`MeshContext`): on a mesh each rank holds plain
+local tensors, its block of every global leaf (``partitioning.
+local_shard``), and the model code is handed a `MeshContext` as its
+``mesh=`` keyword (``None``: one device, the code as it is without a
+mesh).  The reference's sharding helpers become explicit operations on
+it: its ``filter_spec`` is ``partitioning.filter_spec`` on the context's
+mesh, its ``dp_axes`` the context's `batch_axes` (the serving policy's
+batch cut), and its ``shard`` constraints, which GSPMD turns into
+collectives, are two operations issued in the open: the FSDP gather of a
+leaf over its 'data' (and 'pod') entries, layer by layer at use
+(`MeshContext.fsdp`), and the 'model'-axis sum of a row-parallel product
+(`MeshContext.sum`).  The reshards of the reference's ``embed_lookup``
+become `embed_lookup`'s gathers of token ids and feature blocks.  Every
+collective goes through ``core/collectives.py`` and is counted in the
+context's ``CommLog``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 Params = Any  # nested dict of tensors
 
@@ -224,3 +238,157 @@ def matmul_f32(x, w):
     ``preferred_element_type=float32`` product of (possibly bf16) inputs
     (a product of two bf16 values is exact in float32)."""
     return torch.matmul(x.float(), w.float())
+
+
+# ----------------------------------------------------------------------------
+# sharded execution: one rank's view of the mesh
+# ----------------------------------------------------------------------------
+
+
+def dp_axes() -> tuple[str, str]:
+    """Mesh axes carrying the batch (data-parallel) dimension."""
+    return ("pod", "data")
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The axes one spec entry names, major first (``None``: none)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(axes, coord: dict, sizes: dict) -> tuple[int, int]:
+    """(index, count) of the block that `coord` ({axis: index}) holds of
+    a dim cut over `axes`, the first axis major; an axis missing from
+    `sizes` counts as size 1."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes.get(a, 1) + coord.get(a, 0)
+        n *= sizes.get(a, 1)
+    return idx, n
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """What a model call needs on one rank of a ``DeviceMesh``: `specs`,
+    the filtered spec tree of the local param shards it is given (MLR:
+    ``partitioning.param_specs``; SLR: the same with 'model' stripped);
+    `batch_axes`, the axes the batch dim is cut over (the policy's,
+    filtered; ``()`` where the batch stays replicated); `cache_specs`,
+    the filtered specs of the KV cache's leaves; `log`, the ``CommLog``
+    every collective of the calls is counted in.  Axis sizes, this rank's
+    coordinates and the groups of the axes of size > 1 are read once."""
+    mesh: Any
+    specs: Params
+    batch_axes: tuple = ()
+    cache_specs: dict | None = None
+    log: Any = None
+
+    def __post_init__(self):
+        from repro_torch.core.comm import (CommLog, axis_coords, axis_group,
+                                           axis_sizes)
+        self.sizes = axis_sizes(self.mesh)
+        self.coords = axis_coords(self.mesh)
+        self.groups = {a: axis_group(self.mesh, a)
+                       for a, n in self.sizes.items() if n > 1}
+        self.batch_axes = tuple(a for a in self.batch_axes
+                                if self.sizes.get(a, 1) > 1)
+        if self.log is None:
+            self.log = CommLog()
+
+    def size(self, axes) -> int:
+        return math.prod(self.sizes.get(a, 1) for a in axes)
+
+    def spec(self, path: str) -> tuple:
+        """The filtered spec of the param leaf at dotted `path`."""
+        return get_path(self.specs, path)
+
+    def block(self, axes) -> tuple[int, int]:
+        """(index, count) of this rank's block of a dim cut over `axes`,
+        the first axis major."""
+        return block_index(axes, self.coords, self.sizes)
+
+    def rows(self, x, axes):
+        """This rank's block of `x`'s leading dim cut over `axes`."""
+        i, n = self.block(axes)
+        k = x.shape[0] // n
+        return x[i * k:(i + 1) * k]
+
+    def gather(self, x, dim: int, axes):
+        """The blocks of a dim cut over `axes` (first major) joined on `dim`,
+        from every rank that differs from this one on those axes: one
+        fused all-gather per axis of size > 1, the minor axis first."""
+        from repro_torch.core.collectives import dedicated_all_gather
+        dim = dim % x.dim()
+        for a in reversed(tuple(axes)):
+            if self.sizes.get(a, 1) > 1:
+                parts = dedicated_all_gather(x, self.groups[a], self.log)
+                x = parts.movedim(0, dim).flatten(dim, dim + 1)
+        return x
+
+    def sum(self, x, axes):
+        """`x` summed over the ranks of `axes`: one fused all-reduce per
+        axis of size > 1."""
+        from repro_torch.core.collectives import dedicated_all_reduce
+        for a in axes:
+            if self.sizes.get(a, 1) > 1:
+                x = dedicated_all_reduce(x, self.groups[a], self.log)
+        return x
+
+    def fsdp(self, leaf, spec: tuple):
+        """The FSDP gather at use: `leaf` (a local shard under `spec`) with
+        every dim cut over axes other than 'model' gathered whole, so it
+        is left cut over 'model' alone (its tensor-parallel block).  A dim
+        cut over 'model' and another axis at once raises (only the
+        embedding table is, and `embed_lookup` reads it as it lies)."""
+        for d, entry in enumerate(spec):
+            axes = entry_axes(entry)
+            if not axes or axes == ("model",):
+                continue
+            if "model" in axes:
+                raise ValueError(f"MeshContext.fsdp: dim {d} of {spec} is "
+                                 f"cut over 'model' and {axes}")
+            leaf = self.gather(leaf, d, axes)
+        return leaf
+
+    def all_done(self, done) -> bool:
+        """True where every lane of every rank is done (`done`: this
+        rank's (B,) mask): one fused all-reduce of the live lanes' count
+        over every rank (the mesh spans the process group), so every rank
+        takes the same branch."""
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import dedicated_all_reduce
+        live = (~done).sum().to(torch.int32).reshape(1)
+        return int(dedicated_all_reduce(live, dist.group.WORLD,
+                                        self.log)[0]) == 0
+
+
+def embed_lookup(table, tokens, cfg, mesh: MeshContext):
+    """The token table's rows on a rank of a mesh.  The table is
+    feature-sharded (``embed.tokens``: vocab whole, d cut over its
+    entry's axes), as in the reference, so the lookup is local; this rank
+    gathers the token ids of every rank it shares a feature cut with that
+    holds other requests (the batch axes the feature entry also names),
+    looks them all up in its feature block, gathers the feature blocks
+    and keeps its own requests' rows: ids and (B, S, d) activations move,
+    never the table."""
+    feat = entry_axes(mesh.spec("embed.tokens")[1])
+    shared = tuple(a for a in mesh.batch_axes if a in feat)
+    x = F.embedding(mesh.gather(tokens, 0, shared), cast(table, cfg))
+    return mesh.rows(mesh.gather(x, -1, feat), shared)
+
+
+def tied_logits(table, hidden, cfg, mesh: MeshContext):
+    """``hidden @ table.T`` in float32 on a rank of a mesh, the table
+    feature-sharded: the hidden rows of every rank that shares this
+    rank's feature cut are gathered, multiplied by this rank's feature
+    block of the table, the float32 partial logits summed over the
+    feature axes, and this rank's rows kept."""
+    feat = entry_axes(mesh.spec("embed.tokens")[1])
+    shared = tuple(a for a in mesh.batch_axes if a in feat)
+    h = mesh.gather(hidden, 0, shared)
+    i, n = mesh.block(feat)
+    k = h.shape[-1] // n
+    part = matmul_f32(h[..., i * k:(i + 1) * k], cast(table, cfg).T)
+    return mesh.rows(mesh.sum(part, feat), shared)

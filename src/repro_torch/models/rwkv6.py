@@ -305,3 +305,11 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
     new_cache = {"wkv": wkv, "tmix_x": tx, "cmix_x": cx,
                  "pos": cache["pos"] + 1, "lengths": cache["lengths"] + 1}
     return new_cache, logits
+
+
+def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
+    """The cache's specs on a mesh: this family does not run sharded
+    yet (``models.check_mesh``)."""
+    from repro_torch.models.transformer import MESH_TODO
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
+                              f"sharded cache waits for {MESH_TODO}")

@@ -17,6 +17,19 @@ reference is functional and returns a new cache; here prefill and decode
 write the new K/V into the cache's tensors in place and return the cache
 dict with its position and lengths advanced (the caller's dict is not
 changed).  ``cache["pos"]`` is a Python int.
+
+On a mesh (``mesh=``, a ``common.MeshContext``; ``None``: one device)
+every rank runs the same code on its local shards, with the reference's
+Megatron layout: ``wq/wk/wv`` and ``w_gate/w_up`` column-parallel (this
+rank's heads and columns, whole q heads over their own KV heads, as
+``attention._group`` lays them out), ``wo`` and ``w_down``
+row-parallel, each followed by one float32 sum over 'model'; the
+residual stream stays whole over 'model' (the reference's
+sequence-parallel residuals are a training layout, not served here).
+Each layer's weights are gathered over 'data' at use (FSDP).  The KV
+cache holds this rank's requests and KV heads (`cache_specs`).  Head
+counts that do not divide by 'model', and the reference's
+sequence-sharded cache layouts, raise.
 """
 from __future__ import annotations
 
@@ -60,7 +73,7 @@ def init(gen, cfg: ModelConfig, device="cuda"):
 
 def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
                     *, causal: bool = True, cache: Optional[tuple] = None,
-                    kv_override: Optional[tuple] = None):
+                    kv_override: Optional[tuple] = None, mesh=None):
     """Pre-norm attention with optional KV cache (shared with whisper and
     zamba).
 
@@ -69,16 +82,19 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
     written into k_cache/v_cache at [pos, pos+S) in place.
     kv_override: (k, v) already projected (whisper's cross-attention): used
     as given, no k_norm, no position embedding.
+    mesh: a ``common.MeshContext`` whose rank holds `p`'s tensor-parallel
+    blocks (its heads); the output is summed over 'model'.
     Returns attn_out.
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    q = cm.matmul(x, cm.cast(p["wq"], cfg)).reshape(b, s, cfg.n_heads, hd)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if mesh is not None:                        # this rank's heads
+        hq, hkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    q = cm.matmul(x, cm.cast(p["wq"], cfg)).reshape(b, s, hq, hd)
     if kv_override is None:
-        k = cm.matmul(x, cm.cast(p["wk"], cfg)).reshape(b, s, cfg.n_kv_heads,
-                                                        hd)
-        v = cm.matmul(x, cm.cast(p["wv"], cfg)).reshape(b, s, cfg.n_kv_heads,
-                                                        hd)
+        k = cm.matmul(x, cm.cast(p["wk"], cfg)).reshape(b, s, hkv, hd)
+        v = cm.matmul(x, cm.cast(p["wv"], cfg)).reshape(b, s, hkv, hd)
     else:
         k, v = kv_override
 
@@ -113,19 +129,37 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
         out = att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
                          chunk=pcfg.attn_chunk)
 
-    out = out.reshape(b, s, cfg.n_heads * hd)
+    out = out.reshape(b, s, hq * hd)
+    if mesh is not None and hq != cfg.n_heads:
+        return _row_parallel(out, cm.cast(p["wo"], cfg), mesh)
     return cm.matmul(out, cm.cast(p["wo"], cfg))
 
 
-def mlp_block(p, x, cfg: ModelConfig, pcfg: ParallelConfig):
+def _row_parallel(x, w, mesh):
+    """``x @ w`` of a row-parallel block (`x`'s columns and `w`'s rows are
+    this rank's share): the float32 partial product summed over 'model',
+    then rounded once to the product's dtype, as the whole product is."""
+    out = mesh.sum(cm.matmul_f32(x, w), ("model",))
+    return out.to(torch.promote_types(x.dtype, w.dtype))
+
+
+def mlp_block(p, x, cfg: ModelConfig, pcfg: ParallelConfig, mesh=None):
     h = F.silu(cm.matmul(x, cm.cast(p["w_gate"], cfg)))
     u = cm.matmul(x, cm.cast(p["w_up"], cfg))
+    if mesh is not None and p["w_down"].shape[0] != cfg.d_ff:
+        return _row_parallel(h * u, cm.cast(p["w_down"], cfg), mesh)
     return cm.matmul(h * u, cm.cast(p["w_down"], cfg))
 
 
-def _layer(params, i: int) -> dict:
-    """Layer i's weights (the leading L dim indexed away)."""
-    return _index(params["layers"], i)
+def _layer(params, i: int, mesh=None) -> dict:
+    """Layer i's weights (the leading L dim indexed away); on a mesh,
+    gathered over 'data' at use (`MeshContext.fsdp`: what is left is
+    this rank's tensor-parallel block)."""
+    pl = _index(params["layers"], i)
+    if mesh is None:
+        return pl
+    return cm.map_tree(mesh.fsdp, pl, cm.map_tree(lambda spec: spec[1:],
+                                                  mesh.specs["layers"]))
 
 
 def _index(tree, i):
@@ -134,16 +168,17 @@ def _index(tree, i):
     return tree[i]
 
 
-def _dense_layer(pl, x, positions, cfg, pcfg, cache=None):
+def _dense_layer(pl, x, positions, cfg, pcfg, cache=None, mesh=None):
     """One layer: (x', aux_loss) — the MoE router's load-balance loss, or
     0.0 for a dense FFN."""
     h = cm.rms_norm(x, pl["norm_attn"], cfg.norm_eps)
-    x = x + attention_block(pl["attn"], h, positions, cfg, pcfg, cache=cache)
+    x = x + attention_block(pl["attn"], h, positions, cfg, pcfg, cache=cache,
+                            mesh=mesh)
     h = cm.rms_norm(x, pl["norm_mlp"], cfg.norm_eps)
     if cfg.family == "moe":
-        m, aux = moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg)
+        m, aux = moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg, mesh=mesh)
     else:
-        m, aux = mlp_block(pl["mlp"], h, cfg, pcfg), 0.0
+        m, aux = mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh), 0.0
     return x + m, aux
 
 
@@ -152,18 +187,34 @@ def _dense_layer(pl, x, positions, cfg, pcfg, cache=None):
 # ----------------------------------------------------------------------------
 
 
-def embed_tokens(params, tokens, cfg):
+def embed_tokens(params, tokens, cfg, mesh=None):
     """The token table's rows, by ``F.embedding``: its backward on the CPU
     adds each row's gradients in token order whatever the thread count,
     where an indexing's (``index_put_`` with accumulate) adds them in the
-    threads' order and so varies from run to run."""
+    threads' order and so varies from run to run.  On a mesh, from the
+    feature-sharded table (`common.embed_lookup`)."""
+    if mesh is not None:
+        return cm.embed_lookup(params["embed"]["tokens"], tokens, cfg, mesh)
     return F.embedding(tokens, cm.cast(params["embed"]["tokens"], cfg))
 
 
-def logits_fn(params, hidden, cfg):
+def logits_fn(params, hidden, cfg, mesh=None):
     """hidden (B, C, d) -> logits (B, C, V) float32: the product of the
     compute-dtype hidden and head in float32, as the reference's
-    ``preferred_element_type=float32``."""
+    ``preferred_element_type=float32``.  On a mesh: the vocab-sharded
+    ``head.w`` gathered over 'data' (the reference gathers it to (None,
+    'model') too), this rank's vocab columns computed and gathered over
+    'model'; a tied head from the feature-sharded table
+    (`common.tied_logits`)."""
+    if mesh is not None:
+        if cfg.tie_embeddings:
+            return cm.tied_logits(params["embed"]["tokens"], hidden, cfg,
+                                  mesh)
+        spec = mesh.spec("head.w")
+        w = mesh.fsdp(cm.cast(params["head"]["w"], cfg), spec)
+        logits = cm.matmul_f32(hidden, w)
+        return (mesh.gather(logits, -1, ("model",))
+                if "model" in cm.entry_axes(spec[1]) else logits)
     if cfg.tie_embeddings:
         w = cm.cast(params["embed"]["tokens"], cfg).T
     else:
@@ -209,45 +260,85 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
 # ----------------------------------------------------------------------------
 
 
+#: the ROADMAP item that the sharded layouts this package refuses wait for
+MESH_TODO = "ROADMAP queue 1, item 3 (Slice F), 'Left out of F3a'"
+
+
+def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, long_ctx: bool,
+                model_size: int = 16) -> dict:
+    """Specs of the (L, B, S, Hkv, hd) KV cache's leaves (the reference's
+    ``cache_specs``): KV heads over 'model', the batch over ('pod',
+    'data').  The reference's other layouts, the sequence over 'model'
+    where the KV heads do not divide and over ('data', 'model') for
+    long-context decode, raise (`MESH_TODO`), as do q heads that do not
+    divide: a rank holds whole q heads over its own KV heads."""
+    if long_ctx:
+        raise NotImplementedError(f"{cfg.name}: long-context decode (the "
+                                  f"sequence over ('data', 'model')) waits "
+                                  f"for {MESH_TODO}")
+    if cfg.n_heads % model_size or cfg.n_kv_heads % model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} q / {cfg.n_kv_heads} KV heads do not "
+            f"divide over 'model' = {model_size}; heads cut across ranks "
+            f"(the reference's sequence-sharded fallback) wait for "
+            f"{MESH_TODO}")
+    dp = cm.dp_axes()
+    kv = (None, dp, None, "model", None)
+    return {"k": kv, "v": kv, "pos": (), "lengths": (dp,)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               pcfg: ParallelConfig, device="cuda"):
-    """Zeroed bf16 K/V caches (L, B, max_seq, Hkv, hd), position 0."""
+               pcfg: ParallelConfig, device="cuda", mesh=None):
+    """Zeroed bf16 K/V caches (L, B, max_seq, Hkv, hd), position 0; on a
+    mesh, this rank's block under ``mesh.cache_specs`` (its requests and
+    KV heads)."""
     dev = cm.check_device(device)
     hd = cfg.resolved_head_dim
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, hd)
+    lshape = (batch,)
+    if mesh is not None:
+        from repro_torch.core.partitioning import local_shape
+        shape = local_shape(shape, mesh.cache_specs["k"], mesh.mesh)
+        lshape = local_shape(lshape, mesh.cache_specs["lengths"], mesh.mesh)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
         "pos": 0,
-        "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "lengths": torch.zeros(lshape, dtype=torch.int32, device=dev),
     }
 
 
-def _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths, pos):
+def _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths, pos,
+                       mesh=None):
     for i in range(cfg.n_layers):
-        x, _ = _dense_layer(_layer(params, i), x, positions, cfg, pcfg,
+        x, _ = _dense_layer(_layer(params, i, mesh), x, positions, cfg, pcfg,
                             cache=(cache["k"][i], cache["v"][i], pos,
-                                   lengths))
+                                   lengths), mesh=mesh)
     return x
 
 
-def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig):
-    """Writes the prompt KV into the cache; returns (cache, last_hidden)."""
+def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
+    """Writes the prompt KV into the cache; returns (cache, last_hidden).
+    On a mesh, `params`, `batch` and `cache` are this rank's blocks."""
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions_from_batch(batch, cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     lengths = cache["lengths"] + s
     x = _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths,
-                           cache["pos"])
+                           cache["pos"], mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = dict(cache, pos=cache["pos"] + s, lengths=lengths)
     return new_cache, x[:, -1:]
 
 
-def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
-    """One token step.  tokens (B, 1) -> (cache', logits (B, 1, V))."""
+def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+           mesh=None):
+    """One token step.  tokens (B, 1) -> (cache', logits (B, 1, V)).  On
+    a mesh, this rank's requests, and their logits over the whole
+    vocabulary."""
     _check_family(cfg)
     b = tokens.shape[0]
     pos = cache["pos"]
@@ -255,11 +346,11 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
                            device=tokens.device)
     if cfg.rope_type == "mrope":
         positions = positions.expand(3, b, 1)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     lengths = cache["lengths"] + 1
     x = _run_layers_cached(params, x, positions, cfg, pcfg, cache, lengths,
-                           pos)
+                           pos, mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = logits_fn(params, x, cfg)
+    logits = logits_fn(params, x, cfg, mesh)
     new_cache = dict(cache, pos=pos + 1, lengths=lengths)
     return new_cache, logits

@@ -187,3 +187,11 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = logits_fn(params, x, cfg)
     return dict(cache, pos=pos + 1, lengths=lengths), logits
+
+
+def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
+    """The cache's specs on a mesh: this family does not run sharded
+    yet (``models.check_mesh``)."""
+    from repro_torch.models.transformer import MESH_TODO
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
+                              f"sharded cache waits for {MESH_TODO}")

@@ -10,7 +10,10 @@ process group), and the reference's param trees are ``jax.eval_shape``
 of its own init, the port's meta tensors of ``_param_shapes``.  Also
 `batch_specs` (positions, enc_embed), `tree_specs`, `strip_axis`,
 `state_specs` and `placements`' rules; placements on a real DeviceMesh are
-held in ``test_torch_collectives.py``."""
+held in ``test_torch_collectives.py``.  Then the local shards of sharded
+execution: `local_shard` and its inverse `assemble` round-trip every
+arch's param tree on four meshes, no process group needed (a rank's
+coordinate is given)."""
 import functools
 
 import numpy as np
@@ -25,7 +28,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro import models as ref_models  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core import partitioning as RP  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.configs.archs import ALL_ARCHS  # noqa: E402
 from repro_torch.configs.base import _param_shapes  # noqa: E402
 from repro_torch.core import partitioning as part  # noqa: E402
@@ -190,3 +193,80 @@ def test_placements_rules():
     assert part.shardings(tree, _Mesh()) == {
         "a": [Replicate(), Shard(0), Replicate()],
         "b": {"c": [Replicate()] * 3}}
+
+
+# ----------------------------------------------------------------------------
+# local shards (sharded execution) and their inverse
+# ----------------------------------------------------------------------------
+
+SHARD_MESHES = {"2x2": ((2, 2), ("data", "model")),
+                "1x4": ((1, 4), ("data", "model")),
+                "4x1": ((4, 1), ("data", "model")),
+                "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+@pytest.mark.parametrize("mesh", list(SHARD_MESHES))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_local_shard_round_trips(arch, mesh):
+    """Every rank's `local_shard` of every leaf of the arch's reduced param
+    tree (distinct values) goes back to the tree exactly (`assemble`:
+    ranks holding one block agree, every element covered); the ranks hold
+    each element as many times as the axes the spec leaves out replicate
+    it; the shapes, and the full-size tree's, are what `filter_spec`
+    implies."""
+    import math
+    pmesh = mesh_mod.make_test_mesh(*SHARD_MESHES[mesh])
+    sizes = mesh_mod.axis_sizes(pmesh)
+    n_ranks = math.prod(sizes.values())
+    cfg = reduce_config(get_config(arch))
+    tree = unflatten_paths({
+        k: torch.arange(math.prod(s), dtype=torch.float32).reshape(s)
+        for k, s in _param_shapes(cfg).items()})
+    specs = part.param_specs(tree, pmesh)
+    coords = part.mesh_coords(pmesh)
+    assert len(coords) == n_ranks and coords[1] != coords[0]
+    shards = [part.shard_tree(tree, specs, pmesh, c) for c in coords]
+    back = flatten_paths(part.assemble_tree(shards, specs, pmesh))
+    flat, fspecs = flatten_paths(tree), flatten_paths(specs)
+    for path, leaf in flat.items():
+        assert torch.equal(back[path], leaf), path
+        used = math.prod(sizes[a] for e in fspecs[path]
+                         for a in part.entry_axes(e))
+        held = sum(flatten_paths(s)[path].numel() for s in shards)
+        assert held == leaf.numel() * n_ranks // used, path
+    full = _port_shapes(arch)
+    fspecs = flatten_paths(part.param_specs(full, pmesh))
+    for path, leaf in flatten_paths(full).items():
+        want = tuple(dim // math.prod(sizes[a] for a in part.entry_axes(e))
+                     for dim, e in zip(leaf.shape, fspecs[path] + (None,) *
+                                       (leaf.dim() - len(fspecs[path]))))
+        got = part.local_shard(leaf, fspecs[path], pmesh, coords[-1]).shape
+        assert tuple(got) == want == part.local_shape(
+            tuple(leaf.shape), fspecs[path], pmesh), path
+
+
+def test_local_shard_cuts_multi_axis_entries_major_first():
+    """A dim over ('data', 'model') is cut data-major, as JAX cuts it (the
+    embedding table's feature dim); a dim over 'pod' and 'data' the same;
+    blocks that disagree, or do not cover the leaf, raise in `assemble`."""
+    pmesh = mesh_mod.make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+    x = torch.arange(3 * 8).reshape(3, 8)
+    spec = (None, ("data", "model"))
+    for c in part.mesh_coords(pmesh):
+        i = 2 * c["data"] + c["model"]
+        assert torch.equal(part.local_shard(x, spec, pmesh, c),
+                           x[:, 2 * i:2 * i + 2])
+    y = torch.arange(8 * 2).reshape(8, 2)
+    c = {"pod": 1, "data": 0, "model": 1}
+    assert torch.equal(part.local_shard(y, (("pod", "data"),), pmesh, c),
+                       y[4:6])
+    blocks = [part.local_shard(x, spec, pmesh, c)
+              for c in part.mesh_coords(pmesh)]
+    bad = [b.clone() for b in blocks]
+    bad[-1] += 1                          # (1, 1, 1): a copy of (0, 1, 1)
+    with pytest.raises(ValueError, match="disagree"):
+        part.assemble(bad, spec, pmesh)
+    with pytest.raises(ValueError, match="does not divide"):
+        part.local_shape((3, 6), spec, pmesh)
+    with pytest.raises(ValueError, match="no process group"):
+        part.local_shard(x, spec, pmesh)

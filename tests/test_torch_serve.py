@@ -25,6 +25,7 @@ from repro.serve.engine import ServeConfig as RefServeConfig  # noqa: E402
 from repro_torch.configs import (ParallelConfig, get_config,  # noqa: E402
                                  reduce_config)
 from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.core.comm import MeshShape  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serve.engine import (Engine, ServeConfig,  # noqa: E402
@@ -138,9 +139,20 @@ def test_cuda_without_card_raises(setup):
 
 
 def test_mesh_raises(setup):
-    _, cfg, _, _, _ = setup
-    with pytest.raises(ValueError, match="one card"):
-        make_serve_fns(cfg, ParallelConfig(), ServeConfig(), mesh=object())
+    """Serving on a mesh needs a process group: a mesh of axis names and
+    sizes alone gets the policy's specs from `make_serve_fns`, but the
+    engine raises; an unknown policy raises.  (Sharded serving itself:
+    tests/test_torch_serve_mesh.py.)"""
+    _, cfg, _, params, _ = setup
+    mesh = MeshShape(("data", "model"), (2, 2))
+    _, _, specs = make_serve_fns(cfg, ParallelConfig(), ServeConfig(),
+                                 mesh=mesh)
+    assert specs["params"]["layers"]["attn"]["wq"] == (None, "data", "model")
+    with pytest.raises(ValueError, match="no process group"):
+        Engine(cfg, ParallelConfig(), ServeConfig(), params, mesh=mesh,
+               device="cpu")
+    with pytest.raises(ValueError, match="policy"):
+        make_serve_fns(cfg, ParallelConfig(), ServeConfig(policy="rank"))
 
 
 @pytest.mark.parametrize("step", [0, 3])

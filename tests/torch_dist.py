@@ -1,6 +1,7 @@
 """Helpers of the port's distributed CPU tests: `spawn` runs a rank body in
 n processes of one gloo process group, and the rank bodies of
-``test_torch_collectives.py`` and ``test_torch_train_pod.py`` live here.
+``test_torch_collectives.py``, ``test_torch_train_pod.py`` and
+``test_torch_serve_mesh.py`` live here.
 Imports torch, numpy and ``repro_torch`` only: the ranks never load JAX.
 
 Every rank body takes (rank, n, *args) and returns a dict of numpy
@@ -216,3 +217,145 @@ def train_pod_rank(rank: int, n: int, ref_path: str) -> dict:
         for name, v in ckpt._flatten(state).items():
             out[f"{label}|{name.replace('/', '~')}"] = _np(v)
     return out
+
+
+# ----------------------------------------------------------------------------
+# test_torch_serve_mesh
+# ----------------------------------------------------------------------------
+
+#: the archs served on the (2, 2) ('data', 'model') mesh, and the run
+SERVE_ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "qwen2-vl-72b")
+SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 8, 12, 32
+
+
+def serve_cfg(arch: str):
+    """Reduced `arch` in float32 (both packages' parity dtype)."""
+    from repro_torch.configs import get_config, reduce_config
+    return dataclasses.replace(reduce_config(get_config(arch)),
+                               dtype="float32")
+
+
+def serve_batch(cfg) -> dict:
+    """SERVE_B prompts of SERVE_PROMPT tokens from numpy seed 2; the VLM's
+    (3, B, S) M-RoPE positions with three distinct streams and a
+    per-request offset, so a cut on the wrong dim would show."""
+    b, s = SERVE_B, SERVE_PROMPT
+    out = {"tokens": np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)}
+    if cfg.family == "vlm":
+        t = np.arange(s, dtype=np.int32)
+        streams = np.stack([t, t // 2, t % 4])[:, None, :]
+        out["positions"] = (streams + 3 * np.arange(
+            b, dtype=np.int32)[None, :, None]).astype(np.int32)
+    return out
+
+
+class Float32Cache:
+    """A model module whose ``init_cache`` makes every float tensor of the
+    cache float32 (the model writes and reads the cache in its dtype), so
+    float32 runs are held without the bf16 cache's rounding, which turns
+    float32 summation-order noise into whole bf16 steps."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def init_cache(self, *args, **kw):
+        return {k: v.float() if torch.is_tensor(v) and v.is_floating_point()
+                else v for k, v in self._model.init_cache(*args, **kw).items()}
+
+
+def serve_mesh_rank(rank: int, n: int, ref_path: str) -> dict:
+    """4 ranks of a (2, 2) ('data', 'model') mesh: each of SERVE_ARCHS
+    from the reference's params under MLR and SLR through
+    ``Engine(..., mesh=...)`` (moe_impl "shard_map": experts over
+    'model'), with attn_impl "chunked" (the reference's) and "pallas"
+    (the kernels' plain versions; also one process, no mesh, as policy
+    "one"): the tokens, each decode step's logits of this rank's lanes
+    and their rows, the local ``attn.wq`` shard's shape, all with a
+    float32 cache (`Float32Cache`); EOS runs; and the
+    expert-parallel block on the reference's inputs (the batch whole, as
+    on the reference's (1, 2) mesh), its output and kept (token, expert)
+    assignments, plain and under the probe weights."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+    out = {}
+
+    def serve(arch, impl, policy, eos=-1):
+        cfg = serve_cfg(arch)
+        params = params_from_reference(
+            {k.split("|", 1)[1]: v for k, v in ref.items()
+             if k.startswith(arch + "|")}, cfg)
+        pcfg = ParallelConfig(attn_impl=impl, moe_impl="shard_map",
+                              remat="none")
+        one = policy == "one"
+        eng = Engine(cfg, pcfg, ServeConfig(
+            max_seq=SERVE_MAX_SEQ, policy="mlr" if one else policy,
+            eos_id=eos), params, mesh=None if one else mesh, device="cpu")
+        eng.model = Float32Cache(eng.model)
+        steps, decode = [], eng.decode_fn
+
+        def recorded(*a, **k):
+            cache, logits = decode(*a, **k)
+            steps.append(_np(logits[:, 0]))
+            return cache, logits
+
+        eng.decode_fn = recorded
+        toks = eng.generate(serve_batch(cfg), SERVE_NEW)
+        i, k = (0, 1) if eng.ctx is None else eng.ctx.block(
+            eng.ctx.batch_axes)
+        lanes = SERVE_B // k
+        key = f"{arch}|{impl}|{policy}|{eos}"
+        out[f"{key}|tokens"] = _np(toks)
+        out[f"{key}|logits"] = np.stack(steps)
+        out[f"{key}|rows"] = np.arange(i * lanes, (i + 1) * lanes)
+        out[f"{key}|steps"] = np.asarray(len(steps))
+        if eng.ctx is not None:
+            out[f"{key}|wq"] = np.array(
+                eng.params["layers"]["attn"]["wq"].shape)
+
+    for arch in SERVE_ARCHS:
+        for policy in ("mlr", "slr"):
+            serve(arch, "chunked", policy)
+        for policy in ("one", "mlr", "slr"):
+            serve(arch, "pallas", policy)
+    for policy in ("mlr", "slr"):
+        serve(SERVE_ARCHS[0], "chunked", policy, int(ref["eos"]))
+
+    ecfg = ep_cfg()
+    ctx = cm.MeshContext(mesh, {})
+    e_local = -(-ecfg.moe.n_experts // 2)
+    x = torch.from_numpy(ref["ep_x"])
+    t = x.shape[0] * x.shape[1]
+    cap = moe.capacity(t, ecfg.moe.experts_per_token, ecfg.moe.n_experts,
+                       ecfg.moe.capacity_factor)
+    ids = torch.from_numpy(ref["ep_ids"]).long()
+    st, sk, _, keep, _ = moe.ep_plan(ids.reshape(t, -1), ctx.coords["model"],
+                                     e_local, cap)
+    out["ep_kept"] = np.stack([_np(st[keep]), _np(sk[keep])
+                               + ctx.coords["model"] * e_local], 1)
+    out["ep_cap"] = np.asarray(cap)
+    for kind in ("rand", "probe"):
+        experts = {w: torch.from_numpy(ref[f"ep_{kind}_{w}"])
+                   for w in ("w_gate", "w_up", "w_down")}
+        out[f"ep_{kind}_out"] = _np(moe._moe_ep_block(
+            x, torch.from_numpy(ref["ep_w"]), ids, experts, ecfg, ctx))
+    return out
+
+
+def ep_cfg():
+    """Reduced granite-moe-3b-a800m in float32 with capacity factor 1, so
+    the reference test's skewed routing overflows an expert's buffer."""
+    cfg = serve_cfg("granite-moe-3b-a800m")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0))
