@@ -288,7 +288,8 @@ and the script exits non-zero):
              the one-process dense FFN drops none), full width cut to 2
              layers, 8 x 64 prompt tokens + 16 greedy, attn_impl "pallas",
              through ``Engine(..., mesh=...)``, bf16, and float32 (a
-             float32 cache) with 8 new tokens (for the budget); per rank
+             float32 cache) with 8 new tokens, MLR only (for the
+             budget); per rank
              and run the flash launches 2 and decode and its combine 2 x
              15 (float32 2 x 7), exact, each on the rank's own
              heads (MLR: 16/2 of tinyllama's 32/4, 12/4 of granite's
@@ -301,7 +302,20 @@ and the script exits non-zero):
              but at near-ties (bf16: top-2 gap within 0.1) or after a
              flip (in bf16 the MoE's one process takes the mesh run's
              experts, so none flips); per-step wall and staged bytes
-             (loopback and PCIe, not NVLink: no limit).
+             (loopback and PCIe, not NVLink: no limit).  Then the
+             same ranks serve as a (1, 4) mesh (MLR; no FSDP
+             gather) every family that F3a left out, at full width:
+             phi3-medium-14b at 2 layers (10 KV heads over 4: the
+             cache's sequence is cut over 'model', each rank runs the
+             split kernel on its block and the combine kernel merges
+             every rank's partials: launches 2 and 2 x 15, every
+             cross-rank combine of the first step bit-identical to
+             `ref.combine_splits` on the same partials), rwkv6-3b at 2
+             (no attention kernel), zamba2-7b at 6 (one shared-block
+             site, hd 112: 1 and 1 x 15), whisper-base at full size over
+             1500 frames (6 and 6 x 15), each bf16 and float32 and held
+             as above; its seconds and each run's median step are
+             printed.
 24. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
@@ -597,10 +611,25 @@ SM_BATCH, SM_PROMPT, SM_NEW, SM_MAX_SEQ = 8, 64, 16, 128
 #: twice the bf16 run's bytes (one NVIDIA H100 80GB HBM3 at 700 W, a slow
 #: host: 60.0 s for the phase with 16)
 SM_NEW_F32 = 8
+#: the policies of the float32 runs: MLR alone, for the budget (the
+#: whole script took 607.8 s with the float32 SLR run on a slow host)
+SM_F32_POLICIES = ("mlr",)
 #: (arch, layers, policies): 2 layers, for the budget (every decode step
 #: gathers each layer's weights over 'data', host-staged: ~0.35 GB/s per
 #: rank with four ranks on the card)
 SM_RUNS = ((SERVE_ARCH, 2, ("mlr", "slr")), (MOE_ARCH, 2, ("mlr",)))
+#: the same ranks as a (1, 4) ('data', 'model') mesh (no FSDP gather: only
+#: the float32 'model' sums and the gathers of whole heads and partials
+#: move), MLR, every family that F3a left out at full width: phi3-medium-
+#: 14b's 10 KV heads do not divide 4 (its cache's sequence is cut over
+#: 'model' and every decode step merges the ranks' partials with the
+#: combine kernel), rwkv6-3b's 40 heads, zamba2-7b's 112 SSM and 32 KV
+#: heads (6 layers: one shared-block site), whisper-base at full depth
+#: over its 1500 frames (None).  Each rank's whole tree is made on the
+#: card from seed 0 and kept on the host until the engine cuts it
+SM_WIDE_MESH = ((1, 4), ("data", "model"))
+SM_WIDE_RUNS = (("phi3-medium-14b", 2, ("mlr",)), (RWKV_ARCH, 2, ("mlr",)),
+                (HYBRID_ARCH, 6, ("mlr",)), (ENCDEC_ARCH, None, ("mlr",)))
 #: float32 decode logits against one process: this fraction of each
 #: step's max |logit|, at every (request, step) that no router flip and no
 #: earlier token difference reaches
@@ -900,39 +929,45 @@ class Float32Cache:
 def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
                       t_spawn: float) -> dict:
     """Phase `serve_mesh`'s work in one rank of `pod_sync`'s spawn: for
-    each of SM_RUNS, full width from seed-0 weights on the card, every
-    policy through ``Engine(..., mesh=...)`` on a SM_MESH mesh, bf16 and
-    float32; the kernels' launch counters reset just before each run and
-    read just after (flash once per layer, decode and its combine once
-    per layer and step: exact, per rank), the q / KV heads of every
-    launch (this rank's share under MLR), the decode steps' CommLog
-    against ``serve_policies.decode_comm`` (exact), each step's wall time
-    and staged bytes.  Rank 0 gathers every run's logits, tokens and
-    routing and holds them to one process's `Engine` (`sm_compare`); in
-    bf16 a MoE's one-process run takes the mesh run's experts (as
-    serve_moe's plain paths take the kernel path's: bf16 rounding of the
-    ranks' sums flips near-tie routes in every request), its weights its
-    own probabilities at them."""
+    each of SM_RUNS on a SM_MESH mesh and each of SM_WIDE_RUNS on a
+    SM_WIDE_MESH one, full width from seed-0 weights, every policy
+    through ``Engine(..., mesh=...)``, bf16 and float32; the kernels'
+    launch counters reset just before each run and read just after
+    (flash once per attention layer, decode and its combine once per
+    attention layer and step: exact, per rank), the q / KV heads of
+    every launch (this rank's share under MLR, or every head where the
+    cache's sequence is cut), the decode steps' CommLog against
+    ``serve_policies.decode_comm`` (exact), each step's wall time and
+    staged bytes; over a sequence-sharded cache every cross-rank combine
+    of the run's first decode step bit-identical to
+    ``ref.combine_splits`` on the same gathered partials.  Rank 0 gathers
+    every run's logits, tokens and routing and holds them to one
+    process's `Engine` (`sm_compare`); in bf16 a MoE's one-process run
+    takes the mesh run's experts (as serve_moe's plain paths take the
+    kernel path's: bf16 rounding of the ranks' sums flips near-tie
+    routes in every request), its weights its own probabilities at
+    them."""
     import torch
 
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.core.comm import axis_sizes
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import common as cm
+    from repro_torch.models import get_model, make_batch, moe
     from repro_torch.serve.engine import Engine, ServeConfig
 
     def sync():
         torch.cuda.synchronize(dev)
 
     torch.cuda.empty_cache()
-    mesh = make_test_mesh(*SM_MESH, device_type=dev.type)
-    sizes = axis_sizes(mesh)
-    heads, routes = [], []
-    orig = (fa_ops.flash_attention, dec_ops.decode_attention, moe.route)
+    heads, routes, combines = [], [], []
+    orig = (fa_ops.flash_attention, dec_ops.decode_attention,
+            dec_ops.decode_attention_sharded, moe.route, dec_kernel.combine)
 
     def flash(q, k, v, **kw):
         heads.append(("flash", q.shape[2], k.shape[2]))
@@ -942,10 +977,24 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
         heads.append(("decode", q.shape[2], k_cache.shape[2]))
         return orig[1](q, k_cache, v_cache, lengths)
 
+    def decode_sharded(q, k_block, v_block, lengths, start, gather):
+        heads.append(("decode", q.shape[2], k_block.shape[2]))
+        return orig[2](q, k_block, v_block, lengths, start, gather)
+
+    check_combines = [0]     # cross-rank combines left to hold bit for bit
+
+    def combine(m, l, acc, dtype):
+        o = orig[4](m, l, acc, dtype)
+        if check_combines[0] > 0:
+            check_combines[0] -= 1
+            want = dec_ref.combine_splits(m, l, acc, dtype)
+            combines.append(bool(torch.equal(o, want.reshape(o.shape))))
+        return o
+
     forced = []
 
     def route(x, w, cfg):
-        top_w, top_ids, aux = orig[2](x, w, cfg)
+        top_w, top_ids, aux = orig[3](x, w, cfg)
         if forced:                      # the mesh run's experts
             top_ids = forced.pop(0).to(top_ids.dtype)
             probs = torch.softmax(x.float() @ w.float(), dim=-1)
@@ -954,111 +1003,174 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
         routes.append(top_ids.sort(-1).values)
         return top_w, top_ids, aux
 
-    fa_ops.flash_attention, dec_ops.decode_attention, moe.route = \
-        flash, decode, route
+    (fa_ops.flash_attention, dec_ops.decode_attention,
+     dec_ops.decode_attention_sharded, moe.route, dec_kernel.combine) = (
+        flash, decode, decode_sharded, route, combine)
     import numpy as np
     prompt = np.random.default_rng(3).integers(0, 32000, (SM_BATCH,
                                                           SM_PROMPT))
     out = {}
     try:
-        for arch, layers, policies in SM_RUNS:
-            base = dataclasses.replace(get_config(arch), n_layers=layers)
-            if base.moe.n_experts:          # every assignment kept, as the
-                base = dataclasses.replace(  # one-process dense FFN keeps
-                    base, moe=dataclasses.replace(
-                        base.moe, capacity_factor=float(base.moe.n_experts)))
-            params = transformer.init(0, base, device=dev)
-            batch = {"tokens": torch.from_numpy(
-                prompt % base.vocab_size).to(torch.int32)}
-            pcfg = ParallelConfig(attn_impl="pallas", moe_impl="shard_map",
-                                  remat="none")
-            for dtype in ("bfloat16", "float32"):
-                cfg = dataclasses.replace(base, dtype=dtype)
-                for policy in policies + ("one",):
-                    if policy == "one" and rank != 0:
-                        continue
-                    one = policy == "one"
-                    eng = Engine(cfg, pcfg, ServeConfig(
-                        max_seq=SM_MAX_SEQ, policy="mlr" if one else policy),
-                        params, mesh=None if one else mesh, device=dev)
-                    if dtype == "float32":
-                        eng.model = Float32Cache(eng.model)
-                    logits, steps = [], []
-                    for name in ("prefill_fn", "decode_fn"):
-                        def rec(*a, _fn=getattr(eng, name), **kw):
-                            cache, lg = _fn(*a, **kw)
-                            logits.append(lg[:, -1].float())
-                            return cache, lg
-                        setattr(eng, name, rec)
-
-                    def observer(kind, *, done, lengths, _eng=eng):
-                        sync()
-                        log = _eng.log
-                        steps.append((time.perf_counter(),
-                                      log.wire_bytes if log else 0,
-                                      log.staged_bytes if log else 0,
-                                      log.ops if log else 0))
-
-                    heads.clear()
-                    routes.clear()
-                    if one and dtype == "bfloat16" and cfg.moe.n_experts:
-                        forced[:] = out[f"{arch}|{dtype}|mlr"]["_keep"][2]
-                    sync()
-                    fa_kernel.flash_attention_fwd.launches = 0
-                    dec_kernel.decode_attention.launches = 0
-                    dec_kernel.decode_attention.combine_launches = 0
-                    t0 = time.perf_counter()
-                    new = SM_NEW if dtype == "bfloat16" else SM_NEW_F32
-                    toks = eng.generate(batch, new, observer=observer)
-                    sync()
-                    wall = time.perf_counter() - t0
-                    launches = [fa_kernel.flash_attention_fwd.launches,
-                                dec_kernel.decode_attention.launches,
-                                dec_kernel.decode_attention.combine_launches]
-                    label = f"{arch}|{dtype}|{policy}"
-                    run = sm_run_stats(label, cfg, policy, sizes, launches,
-                                       heads, steps, wall, new)
-                    lg = torch.stack(logits)               # (steps, B_l, V)
-                    rt = list(routes)
-                    if not one:                   # the whole batch, rank 0
-                        ctx = eng.ctx
-                        lg = ctx.gather(lg, 1, ctx.batch_axes)
-                        blk = moe._reference_block_axes(ctx, SM_BATCH)
-                        rt = [ctx.gather(r, 0, blk) for r in rt]
-                    if rank == 0:
-                        run["_keep"] = (toks, lg, rt)
-                    out[label] = run
-                    del eng, lg, rt
+        for mesh_shape, runs in ((SM_MESH, SM_RUNS),
+                                 (SM_WIDE_MESH, SM_WIDE_RUNS)):
+            mesh = make_test_mesh(*mesh_shape, device_type=dev.type)
+            sizes = axis_sizes(mesh)
+            for arch, layers, policies in runs:
+                base = get_config(arch)
+                if layers is not None:
+                    base = dataclasses.replace(base, n_layers=layers)
+                if base.moe.n_experts:      # every assignment kept, as the
+                    base = dataclasses.replace(  # one-process dense FFN
+                        base, moe=dataclasses.replace(  # keeps
+                            base.moe,
+                            capacity_factor=float(base.moe.n_experts)))
+                params = get_model(base).init(0, base, device=dev)
+                if mesh_shape == SM_WIDE_MESH:    # the whole tree on the host
+                    params = cm.map_tree(lambda t: t.cpu(), params)
                     torch.cuda.empty_cache()
-            if rank == 0:
+                pcfg = ParallelConfig(attn_impl="pallas",
+                                      moe_impl="shard_map", remat="none")
                 for dtype in ("bfloat16", "float32"):
-                    want = out[f"{arch}|{dtype}|one"].pop("_keep")
-                    for policy in policies:
-                        run = out[f"{arch}|{dtype}|{policy}"]
-                        run["vs_one_process"] = sm_compare(
-                            f"{arch}|{dtype}|{policy}", run.pop("_keep"),
-                            want, dtype, layers)
-            del params
-            torch.cuda.empty_cache()
-            marks[f"serve_mesh_{arch}"] = time.time() - t_spawn
+                    cfg = dataclasses.replace(base, dtype=dtype)
+                    batch = {"tokens": torch.from_numpy(
+                        prompt % cfg.vocab_size).to(torch.int32)}
+                    if cfg.family == "encdec":
+                        batch["enc_embed"] = make_batch(
+                            3, cfg, SM_BATCH, SM_PROMPT, "prefill")[
+                                "enc_embed"]
+                    kept = sm_policies(policies, dtype)
+                    for policy in kept + ("one",):
+                        if policy == "one" and rank != 0:
+                            continue
+                        one = policy == "one"
+                        eng = Engine(cfg, pcfg, ServeConfig(
+                            max_seq=SM_MAX_SEQ,
+                            policy="mlr" if one else policy),
+                            params, mesh=None if one else mesh, device=dev)
+                        if dtype == "float32":
+                            eng.model = Float32Cache(eng.model)
+                        logits, steps = [], []
+                        for name in ("prefill_fn", "decode_fn"):
+                            def rec(*a, _fn=getattr(eng, name), **kw):
+                                cache, lg = _fn(*a, **kw)
+                                logits.append(lg[:, -1].float())
+                                return cache, lg
+                            setattr(eng, name, rec)
+
+                        def observer(kind, *, done, lengths, _eng=eng):
+                            sync()
+                            log = _eng.log
+                            steps.append((time.perf_counter(),
+                                          log.wire_bytes if log else 0,
+                                          log.staged_bytes if log else 0,
+                                          log.ops if log else 0))
+
+                        heads.clear()
+                        routes.clear()
+                        combines.clear()
+                        seq = sm_seq_sharded(cfg, policy, sizes)
+                        check_combines[0] = sm_attention_layers(cfg) \
+                            if seq else 0
+                        if one and dtype == "bfloat16" and cfg.moe.n_experts:
+                            forced[:] = out[f"{arch}|{dtype}|mlr"]["_keep"][2]
+                        sync()
+                        fa_kernel.flash_attention_fwd.launches = 0
+                        dec_kernel.decode_attention.launches = 0
+                        dec_kernel.decode_attention.combine_launches = 0
+                        t0 = time.perf_counter()
+                        new = SM_NEW if dtype == "bfloat16" else SM_NEW_F32
+                        toks = eng.generate(batch, new, observer=observer)
+                        sync()
+                        wall = time.perf_counter() - t0
+                        launches = [
+                            fa_kernel.flash_attention_fwd.launches,
+                            dec_kernel.decode_attention.launches,
+                            dec_kernel.decode_attention.combine_launches]
+                        label = f"{arch}|{dtype}|{policy}"
+                        run = sm_run_stats(label, cfg, policy, sizes,
+                                           launches, heads, steps, wall, new,
+                                           seq)
+                        run["mesh"] = None if one else mesh_shape[0]
+                        if seq:
+                            if len(combines) != sm_attention_layers(cfg) \
+                                    or not all(combines):
+                                raise RuntimeError(
+                                    f"serve_mesh: {label}: cross-rank "
+                                    f"combines bit-identical to "
+                                    f"ref.combine_splits: {combines}")
+                            run["combines_bit_identical"] = len(combines)
+                        lg = torch.stack(logits)           # (steps, B_l, V)
+                        rt = list(routes)
+                        if not one:               # the whole batch, rank 0
+                            ctx = eng.ctx
+                            lg = ctx.gather(lg, 1, ctx.batch_axes)
+                            blk = moe._reference_block_axes(ctx, SM_BATCH)
+                            rt = [ctx.gather(r, 0, blk) for r in rt]
+                        if rank == 0:
+                            run["_keep"] = (toks, lg, rt)
+                        out[label] = run
+                        del eng, lg, rt
+                        torch.cuda.empty_cache()
+                if rank == 0:
+                    for dtype in ("bfloat16", "float32"):
+                        want = out[f"{arch}|{dtype}|one"].pop("_keep")
+                        for policy in sm_policies(policies, dtype):
+                            run = out[f"{arch}|{dtype}|{policy}"]
+                            run["vs_one_process"] = sm_compare(
+                                f"{arch}|{dtype}|{policy}", run.pop("_keep"),
+                                want, dtype, base.n_layers)
+                del params
+                torch.cuda.empty_cache()
+                marks[f"serve_mesh_{arch}"] = time.time() - t_spawn
     finally:
-        fa_ops.flash_attention, dec_ops.decode_attention, moe.route = orig
+        (fa_ops.flash_attention, dec_ops.decode_attention,
+         dec_ops.decode_attention_sharded, moe.route,
+         dec_kernel.combine) = orig
     return out
 
 
+def sm_policies(policies: tuple, dtype: str) -> tuple:
+    """The policies of a `serve_mesh` run in `dtype` (SM_F32_POLICIES)."""
+    if dtype == "float32":
+        return tuple(p for p in policies if p in SM_F32_POLICIES)
+    return policies
+
+
+def sm_attention_layers(cfg) -> int:
+    """The attention layers that read the KV cache in one step of `cfg`:
+    every layer of a transformer or whisper's decoder, zamba's
+    shared-block sites, none in RWKV-6."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def sm_seq_sharded(cfg, policy, sizes) -> bool:
+    """True where the run's KV cache has its sequence cut over the mesh
+    (MLR over 'model' sizes that the KV heads do not divide)."""
+    return (policy == "mlr" and cfg.family != "ssm"
+            and cfg.n_kv_heads % sizes["model"] != 0)
+
+
 def sm_run_stats(label, cfg, policy, sizes, launches, heads, steps,
-                 wall, new) -> dict:
-    """One `serve_mesh` run's checks on its rank: launches exact, every
-    launch on this rank's heads (MLR: the q and KV heads over 'model'),
-    the decode steps' wire bytes and calls equal to
-    ``serve_policies.decode_comm``; its times and staged bytes."""
+                 wall, new, seq=False) -> dict:
+    """One `serve_mesh` run's checks on its rank: launches exact (flash once
+    per attention layer that reads the cache, decode and its combine once
+    per such layer and step), every launch on this rank's heads (MLR:
+    the q and KV heads over 'model'; every head where the cache's
+    sequence is cut, `seq`), the decode steps' wire bytes and calls
+    equal to ``serve_policies.decode_comm`` (over a sequence-sharded
+    cache its partials' gather counts the split kernel's splits per
+    rank); its times and staged bytes."""
     from repro_torch.benchmarks import serve_policies
-    n = cfg.n_layers
+    n = sm_attention_layers(cfg)
     want = [n, n * (new - 1), n * (new - 1)]
     if launches != want:
         raise RuntimeError(f"serve_mesh: {label}: launches (flash, decode, "
                            f"combine) {launches}, want {want}")
-    tp = sizes["model"] if policy == "mlr" else 1
+    tp = sizes["model"] if policy == "mlr" and not seq else 1
     want_heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
     if any(h[1:] != want_heads for h in heads) or len(heads) != sum(
             launches[:2]):
@@ -1066,17 +1178,23 @@ def sm_run_stats(label, cfg, policy, sizes, launches, heads, steps,
                            f"{sorted(set(heads))}, want {want_heads}")
     dec = [tuple(y - x for x, y in zip(a, b))
            for a, b in zip(steps, steps[1:])]
-    run = {"launches": launches, "heads": list(want_heads), "wall_s": wall,
-           "step_ms": [1e3 * d[0] for d in dec]}
+    run = {"launches": launches, "heads": list(want_heads) if n else [],
+           "wall_s": wall, "step_ms": [1e3 * d[0] for d in dec],
+           "seq_sharded_cache": seq}
     if policy != "one":
-        wire, ops = serve_policies.decode_comm(cfg, sizes, SM_BATCH, policy)
+        import torch
+        splits = serve_policies.decode_splits(cfg, sizes, SM_BATCH, policy,
+                                              SM_MAX_SEQ,
+                                              torch.device("cuda", 0))
+        wire, ops = serve_policies.decode_comm(
+            cfg, sizes, SM_BATCH, policy, max_seq=SM_MAX_SEQ, splits=splits)
         got = {(d[1], d[3]) for d in dec}
         if got != {(wire, ops)}:
             raise RuntimeError(f"serve_mesh: {label}: decode steps' (wire "
                                f"bytes, calls) {sorted(got)}, the schedule "
                                f"says {(wire, ops)}")
         run.update(wire_bytes_per_tok=wire / SM_BATCH, calls_per_step=ops,
-                   staged_bytes_per_step=dec[0][2])
+                   staged_bytes_per_step=dec[0][2], splits_per_rank=splits)
     return run
 
 
@@ -4057,7 +4175,10 @@ def main() -> int:
         ranks = shared.pop("serve_mesh")
         marks = pod_stats["rank0_marks_s"]
         started = marks[f"train_{POD_MODES[-1][0]}"]
-        rank_s = marks[f"serve_mesh_{SM_RUNS[-1][0]}"] - started
+        rank_s = marks[f"serve_mesh_{SM_WIDE_RUNS[-1][0]}"] - started
+        wide_s = rank_s - (marks[f"serve_mesh_{SM_RUNS[-1][0]}"] - started)
+        combines = sum(run.get("combines_bit_identical", 0) for r in ranks
+                       for run in r.values())
         launches = {"flash": sum(run["launches"][0] for r in ranks
                                  for k, run in r.items()
                                  if not k.endswith("|one")),
@@ -4067,17 +4188,20 @@ def main() -> int:
                     "decode_combine": sum(run["launches"][2] for r in ranks
                                           for k, run in r.items()
                                           if not k.endswith("|one"))}
-        st = {"ranks": POD_RANKS, "mesh": SM_MESH,
+        st = {"ranks": POD_RANKS, "meshes": [SM_MESH, SM_WIDE_MESH],
               "backend": pod_stats["backend"], "batch": SM_BATCH,
               "prompt": SM_PROMPT,
               "new": {"bfloat16": SM_NEW, "float32": SM_NEW_F32},
-              "runs": {a: {"layers": n, "policies": p}
-                       for a, n, p in SM_RUNS},
+              "runs": {a: {"layers": n, "policies": p, "mesh": m[0]}
+                       for m, runs in ((SM_MESH, SM_RUNS),
+                                       (SM_WIDE_MESH, SM_WIDE_RUNS))
+                       for a, n, p in runs},
               "rank0": ranks[0], "per_rank_launches": [
                   {k: run["launches"] for k, run in r.items()}
                   for r in ranks],
               "launches": launches, "seconds_in_ranks": rank_s,
-              "card": smi}
+              "seconds_of_the_1x4_runs": wide_s,
+              "cross_rank_combines_bit_identical": combines, "card": smi}
         print(json.dumps({"serve_mesh": st}), flush=True)
         rows = []
         for label, run in ranks[0].items():
@@ -4086,7 +4210,8 @@ def main() -> int:
             vs = run["vs_one_process"]
             gap = vs["worst_logit_gap_over_max"]
             rows.append(
-                f"{label}: {statistics.median(run['step_ms']):.1f} ms/step "
+                f"{label} on {run['mesh']}: {run['wall_s']:.2f} s, "
+                f"{statistics.median(run['step_ms']):.1f} ms/step "
                 f"(median), {run['wire_bytes_per_tok']:.4g} B/tok on the "
                 f"wire ({run['calls_per_step']} calls/step, "
                 f"{run['staged_bytes_per_step'] / 1e6:.1f} MB staged per "
@@ -4098,12 +4223,16 @@ def main() -> int:
                 f"flips")
         return st, (
             f"{POD_RANKS} ranks of pod_sync's spawn on one card over "
-            f"{st['backend']} as a {SM_MESH[0]} {SM_MESH[1]} mesh (every "
+            f"{st['backend']} as a {SM_MESH[0]} and a {SM_WIDE_MESH[0]} "
+            f"{SM_MESH[1]} mesh (every "
             f"transfer host-staged: loopback and PCIe, not NVLink; {smi}); "
             f"{SM_BATCH} x {SM_PROMPT} + {SM_NEW} greedy (float32 "
             f"{SM_NEW_F32}), held against one "
             f"process: " + "; ".join(rows) + f"; launches {launches}; "
-            f"{rank_s:.1f} s inside the ranks (in pod_sync's time)")
+            f"{combines} cross-rank combines bit-identical to "
+            f"ref.combine_splits; {rank_s:.1f} s inside the ranks, "
+            f"{wide_s:.1f} of them the {SM_WIDE_MESH[0]} runs (in "
+            f"pod_sync's time)")
 
     sm_stats = serve_mesh()
 
@@ -4215,6 +4344,8 @@ def main() -> int:
             "serve_encdec_launches":
                 encdec_stats["launches"]["decode_combine"],
             "serve_mesh_launches": sm_stats["launches"]["decode_combine"],
+            "serve_mesh_cross_rank_combines_bit_identical":
+                sm_stats["cross_rank_combines_bit_identical"],
             "max_abs_err": 0.0, **attn["combine"],
             "shape": f"partials of {attn['decode']['splits']} splits of the "
                      f"decode shape, float32 -> o bf16",

@@ -330,7 +330,7 @@ cudaError_t launch(const Args& a) {
       attn::strides_at(a.strides, 1), attn::strides_at(a.strides, 2),
       a.Smax, a.G, a.rows, a.scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.o == nullptr) return err;
   return launch_combine<T>(a, HD);
 }
 
@@ -383,6 +383,9 @@ size_t decode_attention_smem(int hd, int G, int cache_dtype) {
 // float32 workspace of 2·B·Hkv·S·G + B·Hkv·S·G·hd words (S = `splits`,
 // each of `rows` cache rows, a multiple of 64).  Launches the split kernel
 // and then the combine kernel on `stream`; returns cudaGetLastError().
+// With `o` null it launches the split kernel alone: the partials stay in
+// `ws` for a combine over several ranks' workspaces (a sequence-sharded
+// cache), which decode_attention_combine_launch then runs.
 int decode_attention_launch(const void* q, const void* kc, const void* vc,
                             const void* lengths, void* o, void* ws,
                             const void* strides, int B, int Smax, int Hkv,

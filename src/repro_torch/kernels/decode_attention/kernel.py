@@ -25,6 +25,12 @@ The split count comes from the shapes and the card's SM count
 (`split_plan`), never from ``lengths``, which stay on the card.
 ``decode_attention.launches`` counts the split kernel's launches,
 ``decode_attention.combine_launches`` the combine kernel's.
+
+A sequence-sharded cache (each rank holds a block of the positions) runs
+the split kernel alone on each rank's block (`split`), gathers every
+rank's partials and merges them with the same combine kernel (`combine`):
+the partials of R ranks of S splits each are R x S splits in position
+order (``ops.decode_attention_sharded``).
 """
 from __future__ import annotations
 
@@ -188,26 +194,28 @@ def layout(q, k_cache, v_cache, lengths) -> Layout:
     return lay
 
 
-def _run(q, k_cache, v_cache, lengths):
-    """Both kernels' launch: (o, workspace, layout)."""
+def _run(q, k_cache, v_cache, lengths, combine: bool = True):
+    """Both kernels' launch, or the split kernel's alone where `combine`
+    is False (o is then None): (o, workspace, layout)."""
     lay = layout(q, k_cache, v_cache, lengths)
     if (k_cache.data_ptr() | v_cache.data_ptr()) % ALIGN_BYTES:
         raise ValueError(f"decode_attention: cache bases at byte addresses "
                          f"{k_cache.data_ptr()}, {v_cache.data_ptr()}, want "
                          f"{ALIGN_BYTES}-byte aligned")
-    o = torch.empty(lay.o_shape, dtype=q.dtype, device=q.device)
+    o = (torch.empty(lay.o_shape, dtype=q.dtype, device=q.device)
+         if combine else None)
     ws = torch.empty(lay.ws_numel, dtype=torch.float32, device=q.device)
     with on_device(q.device):
         err = build().decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), ws.data_ptr(),
-            lay.strides.ctypes.data, *lay.ints, lay.scale,
+            lengths.data_ptr(), 0 if o is None else o.data_ptr(),
+            ws.data_ptr(), lay.strides.ctypes.data, *lay.ints, lay.scale,
             stream_ptr(q.device))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")
     decode_attention.launches += 1
-    decode_attention.combine_launches += 1
+    decode_attention.combine_launches += combine
     return o, ws, lay
 
 
@@ -231,6 +239,14 @@ def decode_attention_partials(q, k_cache, v_cache, lengths):
     model never calls it."""
     o, ws, lay = _run(q, k_cache, v_cache, lengths)
     return o, _parts(ws, lay)
+
+
+def split(q, k_cache, v_cache, lengths):
+    """The split kernel alone: the partials (m, l, acc) of
+    `decode_attention_partials`, views of its workspace, and no output.
+    A rank of a sequence-sharded cache runs it over its block; the
+    partials of every rank are then merged by `combine`."""
+    return _parts(*_run(q, k_cache, v_cache, lengths, combine=False)[1:])
 
 
 def combine(m, l, acc, dtype):

@@ -70,3 +70,45 @@ def combine_splits(m, l, acc, dtype):
         total_l = total_l + w[:, :, i] * l[:, :, i]
         total = total + w[:, :, i, :, None] * acc[:, :, i]
     return (total / total_l.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def gather_partials(m, l, acc, gather):
+    """Every rank's partials of a sequence-sharded cache, joined on the
+    split dim in the ranks' position order: m, l and acc packed into one
+    (B, Hkv, S, G, 2 + hd) float32 tensor, so that `gather` (a collective
+    that joins its argument's dim 2 over the ranks holding the sequence's
+    blocks) moves them in one call, and unpacked into views of one flat
+    workspace (the layout the combine kernel reads: all of m, then l,
+    then acc)."""
+    packed = gather(torch.cat([m[..., None], l[..., None], acc], -1))
+    shape = packed.shape[:-1]
+    n = packed[..., 0].numel()
+    ws = torch.empty(n * packed.shape[-1], dtype=torch.float32,
+                     device=packed.device)
+    m2, l2 = ws[:n].view(shape), ws[n:2 * n].view(shape)
+    acc2 = ws[2 * n:].view(*shape, packed.shape[-1] - 2)
+    m2.copy_(packed[..., 0])
+    l2.copy_(packed[..., 1])
+    acc2.copy_(packed[..., 2:])
+    return m2, l2, acc2
+
+
+def block_lengths(lengths, start: int, rows: int):
+    """The valid rows of a block of `rows` cache positions that starts at
+    position `start`, per lane: the global `lengths` (B,) moved to the
+    block's origin and clamped to [0, rows], int32."""
+    return (lengths - start).clamp(0, rows).to(torch.int32).contiguous()
+
+
+def decode_attend_sharded(q, k_block, v_block, lengths, start: int, gather):
+    """`decode_attend` over a sequence-sharded cache, plainly: this rank's
+    block's softmax state as one split (`split_partials`), every rank's
+    gathered (`gather_partials`) and merged (`combine_splits`).  q (B,
+    Hkv, G, hd); blocks (B, Hkv, rows, hd) holding positions [start,
+    start + rows); lengths (B,) the lanes' global valid lengths.  Returns
+    (B, Hkv, G, hd) in q's dtype."""
+    rows = k_block.shape[2]
+    m, l, acc = split_partials(q, k_block, v_block,
+                               block_lengths(lengths, start, rows),
+                               max(rows, 1))
+    return combine_splits(*gather_partials(m, l, acc, gather), q.dtype)

@@ -267,3 +267,23 @@ def decode_attend(q, k_cache, v_cache, cache_len):
     probs = torch.softmax(scores, dim=-1)
     out = _pv(probs.to(v_cache.dtype), v_cache, "bkgs,bskh->bkgh")
     return out.reshape(b, 1, hq, hd)
+
+
+def decode_attend_sharded(q, k_block, v_block, cache_len, start: int,
+                          gather):
+    """`decode_attend` over a sequence-sharded KV cache (the reference's
+    fallback layout, whose softmax reductions over Smax lower to psums),
+    in plain PyTorch on any device: this rank's blocks (B, rows, Hkv, hd)
+    hold positions [start, start + rows); the rank's partial softmax
+    state over its valid rows (m, l, acc, float32) is gathered from every
+    rank by `gather` (dim 2, position order) and merged in that order,
+    the plain version of the flash-decode kernels' split and combine
+    (``kernels/decode_attention/ref.py``).  q (B, 1, Hq, hd); cache_len
+    (B,) the lanes' global valid lengths.  The result is in q's dtype."""
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    b, _, hq, hd = q.shape
+    hkv = k_block.shape[2]
+    out = dec_ref.decode_attend_sharded(
+        _group(q, hkv)[:, 0], k_block.transpose(1, 2),
+        v_block.transpose(1, 2), cache_len, start, gather)
+    return out.reshape(b, 1, hq, hd)

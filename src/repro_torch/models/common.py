@@ -364,6 +364,14 @@ class MeshContext:
                                         self.log)[0]) == 0
 
 
+def row_parallel(x, w, mesh: MeshContext):
+    """``x @ w`` of a row-parallel block (`x`'s columns and `w`'s rows are
+    this rank's share): the float32 partial product summed over 'model',
+    then rounded once to the product's dtype, as the whole product is."""
+    out = mesh.sum(matmul_f32(x, w), ("model",))
+    return out.to(torch.promote_types(x.dtype, w.dtype))
+
+
 def embed_lookup(table, tokens, cfg, mesh: MeshContext):
     """The token table's rows on a rank of a mesh.  The table is
     feature-sharded (``embed.tokens``: vocab whole, d cut over its

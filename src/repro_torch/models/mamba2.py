@@ -98,43 +98,82 @@ def ssd_chunked(x, dt, la, Bm, Cm, state, chunk: int = 128):
 
 
 def mamba_block(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
-                chunked: bool = True):
+                chunked: bool = True, mesh=None):
     """One mamba2 mixer.  x (B,S,d) -> (out, new_conv_state, new_ssm_state):
     the conv state in x's dtype, the SSM state float32.
 
     p: w_in (d, 2*d_in + 2*G*N + H), conv (w, d_in+2GN), A_log/D/dt_bias (H,),
     norm (d_in,), w_out (d_in, d).
+
+    On a mesh (``mesh=``, a ``common.MeshContext``) `p` holds this rank's
+    blocks under the reference's rules: ``w_in``'s packed [z | x | B | C
+    | dt] columns and ``conv``'s [x | B | C] channels cut contiguously
+    over 'model' (a block straddles the segments), ``w_out``'s rows (its
+    heads' d_in columns); `conv_state` holds its channels and `ssm_state`
+    its heads.  The rank gathers its projection columns over 'model',
+    convolves its channels from its conv state, gathers the conv's
+    output, and runs the scan on its heads with their x, dt and z and the
+    B and C of their groups; the gated norm's sum of squares over d_in is
+    one float32 sum over 'model', and ``w_out`` a row-parallel product
+    summed over 'model'.
     """
     b, s, d = x.shape
     ssm = cfg.ssm
     h_heads, n, g = ssm.n_ssm_heads, ssm.state_dim, ssm.n_groups
     d_in = 2 * d
     p_head = d_in // h_heads
+    ch = d_in + 2 * g * n
+    model = ("model",)
 
     proj = cm.matmul(x, cm.cast(p["w_in"], cfg))
+    if proj.shape[-1] != d_in + ch + h_heads:    # columns cut over 'model'
+        proj = mesh.gather(proj, -1, model)
     z = proj[..., :d_in]
-    xbc = proj[..., d_in:d_in + d_in + 2 * g * n]
+    xbc = proj[..., d_in:d_in + ch]
     dt_raw = proj[..., -h_heads:]
 
-    xbc, conv_state = causal_conv(xbc, cm.cast(p["conv"], cfg), conv_state)
+    w_conv = cm.cast(p["conv"], cfg)
+    if w_conv.shape[-1] != ch:                   # this rank's channels
+        i, _ = mesh.block(model)
+        c = w_conv.shape[-1]
+        xbc, conv_state = causal_conv(xbc[..., i * c:(i + 1) * c], w_conv,
+                                      conv_state)
+        xbc = mesh.gather(xbc, -1, model)
+    else:
+        xbc, conv_state = causal_conv(xbc, w_conv, conv_state)
     x_in = xbc[..., :d_in].reshape(b, s, h_heads, p_head)
     bm = _expand_groups(xbc[..., d_in:d_in + g * n].reshape(b, s, g, n),
                         h_heads)
     cmx = _expand_groups(xbc[..., d_in + g * n:].reshape(b, s, g, n),
                          h_heads)
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["A_log"].float())                 # (H,) < 0
+    dt_bias, a_log, d_skip, norm = p["dt_bias"], p["A_log"], p["D"], p["norm"]
+    hl = p["w_out"].shape[0] // p_head
+    if hl != h_heads:                            # this rank's heads
+        i, _ = mesh.block(model)
+        hs, cs = slice(i * hl, (i + 1) * hl), slice(i * hl * p_head,
+                                                   (i + 1) * hl * p_head)
+        x_in, bm, cmx = x_in[:, :, hs], bm[:, :, hs], cmx[:, :, hs]
+        dt_raw, z, norm = dt_raw[..., hs], z[..., cs], norm[cs]
+        dt_bias, a_log, d_skip = dt_bias[hs], a_log[hs], d_skip[hs]
+
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())                      # (H,) < 0
     la = dt * a                                        # log decay <= 0
 
     if ssm_state is None:
-        ssm_state = torch.zeros((b, h_heads, p_head, n), dtype=torch.float32,
+        ssm_state = torch.zeros((b, hl, p_head, n), dtype=torch.float32,
                                 device=x.device)
     ssd = ssd_chunked if chunked else ssd_sequential
     ssm_state, y = ssd(x_in.float(), dt, la, bm.float(), cmx.float(),
                        ssm_state)
-    y = y + p["D"].float()[None, None, :, None] * x_in.float()
-    y = y.reshape(b, s, d_in)
-    y = cm.rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps)
+    y = y + d_skip.float()[None, None, :, None] * x_in.float()
+    y = y.reshape(b, s, hl * p_head) * F.silu(z.float())
+    if hl != h_heads:    # the gated norm over d_in: its sum over 'model'
+        var = mesh.sum(y.square().sum(-1, keepdim=True), model) / d_in
+        y = y * torch.rsqrt(var + cfg.norm_eps) * norm.float()
+        return (cm.row_parallel(y.to(x.dtype), cm.cast(p["w_out"], cfg), mesh),
+                conv_state, ssm_state)
+    y = cm.rms_norm(y, norm, cfg.norm_eps)
     out = cm.matmul(y.to(x.dtype), cm.cast(p["w_out"], cfg))
     return out, conv_state, ssm_state

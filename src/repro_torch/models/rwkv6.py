@@ -29,8 +29,13 @@ the reference's scan over them is a Python loop.  ``forward`` honours
 counterpart of ``jax.checkpoint(..., nothing_saveable)``.  Serving
 (prefill, decode) has no backward and no remat.  The cache is a dict of
 fresh tensors (the caller's is not changed); ``cache["pos"]`` is a
-Python int.  The reference's sharding (``cm.shard``, ``cache_specs``)
-has no counterpart on one card.
+Python int.
+
+On a mesh (``mesh=``, a ``common.MeshContext``) serving runs on each
+rank's heads where they divide 'model' (`cache_specs`): the time mix's
+projections column-parallel and ``w_o`` row-parallel, the channel mix's
+FFN block column- then row-parallel and its receptance gathered over
+'model', each row-parallel product summed over 'model' in float32.
 
 Simplifications vs. the published model (as in the reference): static
 token-shift interpolation weights (RWKV5-style mu) instead of the dynamic
@@ -45,8 +50,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
+from repro_torch.models.transformer import MESH_TODO
 from repro_torch.models.transformer import _layer as _layer_params
-from repro_torch.models.transformer import embed_tokens, logits_fn
+from repro_torch.models.transformer import (cache_block, embed_tokens,
+                                            logits_fn)
 
 XLA_CHUNK = 32  # intra-chunk tensor is (B, c, c, H, hd) — keep c modest
 
@@ -161,7 +168,12 @@ def _shift(x, x_prev):
 
 
 def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
-             state, *, sequential: bool, fresh: bool = False):
+             state, *, sequential: bool, fresh: bool = False, mesh=None):
+    """On a mesh, `p` holds this rank's blocks: ``w_{r,k,v,g}`` its heads'
+    columns, ``w_o`` their rows; the decay lora's product is whole
+    (``w_decay``, ``w_decay2`` gathered over 'data') and the rank takes
+    its heads' columns of it, of ``bonus`` and of ``ln_x``; `state` holds
+    its heads."""
     b, s, d = x.shape
     h = cfg.ssm.n_ssm_heads
     hd = d // h
@@ -174,10 +186,15 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
     g = F.silu(cm.matmul(xg, cm.cast(p["w_g"], cfg)))
     lora = torch.tanh(cm.matmul(xw, cm.cast(p["w_decay"], cfg)))
     dec = cm.matmul(lora, cm.cast(p["w_decay2"], cfg))
+    u, ln_x = p["bonus"], p["ln_x"].reshape(h, hd)  # (H, hd)
+    if r.shape[-1] != d:                           # this rank's heads
+        h = r.shape[-1] // hd
+        i, _ = mesh.block(("model",))
+        dec = dec[..., i * h * hd:(i + 1) * h * hd]
+        u, ln_x = u[i * h:(i + 1) * h], ln_x[i * h:(i + 1) * h]
     logw = -torch.exp(dec.float() - 2.0)           # w in (0,1); slow init
 
     r4, k4, v4, w4 = (a.reshape(b, s, h, hd) for a in (r, k, v, logw))
-    u = p["bonus"]                                 # (H, hd)
     chunk = min(cfg.ssm.chunk, 64)
     if sequential:
         state, y = wkv_sequential(r4.float(), k4.float(), v4.float(), w4, u,
@@ -192,32 +209,48 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
         state, y = wkv_chunked(r4, k4, v4, w4, u, state,
                                chunk=min(cfg.ssm.chunk, XLA_CHUNK))
     # per-head norm (ln_x), flatten, gate, project out
-    yn = cm.rms_norm(y.float(), p["ln_x"].reshape(h, hd), cfg.norm_eps)
-    out = yn.reshape(b, s, d).to(x.dtype) * g
-    out = cm.matmul(out, cm.cast(p["w_o"], cfg))
-    return out, x[:, -1].float(), state
+    yn = cm.rms_norm(y.float(), ln_x, cfg.norm_eps)
+    out = yn.reshape(b, s, h * hd).to(x.dtype) * g
+    return _out_proj(out, p["w_o"], d, cfg, mesh), x[:, -1].float(), state
 
 
-def channel_mix(p, x, x_prev, cfg: ModelConfig):
+def _out_proj(x, w, rows: int, cfg, mesh):
+    """``x @ w``; where `w`'s rows are cut over 'model' (fewer than
+    `rows`), the row-parallel product summed over 'model'."""
+    w = cm.cast(w, cfg)
+    if w.shape[0] != rows:
+        return cm.row_parallel(x, w, mesh)
+    return cm.matmul(x, w)
+
+
+def channel_mix(p, x, x_prev, cfg: ModelConfig, mesh=None):
+    """On a mesh, `p` holds this rank's blocks: ``w_k`` its FFN columns
+    and ``w_v`` their rows (a row-parallel product), ``w_r`` its columns
+    of the receptance, gathered over 'model'."""
+    d = x.shape[-1]
     xs = _shift(x, x_prev)
     mu = cm.cast(p["mu"], cfg)                     # (2, d)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
     k = torch.square(F.relu(cm.matmul(xk, cm.cast(p["w_k"], cfg))))
-    kv = cm.matmul(k, cm.cast(p["w_v"], cfg))
+    kv = _out_proj(k, p["w_v"], cfg.d_ff, cfg, mesh)
     r = cm.matmul(xr, cm.cast(p["w_r"], cfg))
+    if r.shape[-1] != d:
+        r = mesh.gather(r, -1, ("model",))
     return torch.sigmoid(r) * kv, x[:, -1].float()
 
 
-def _layer(pl, x, cfg, pcfg, st, *, sequential: bool, fresh: bool = False):
+def _layer(pl, x, cfg, pcfg, st, *, sequential: bool, fresh: bool = False,
+           mesh=None):
     """st = (wkv_state, tmix_x, cmix_x) -> (x', st')."""
     wkv_state, tx, cx = st
     h = cm.rms_norm(x, pl["norm1"], cfg.norm_eps)
     a, tx_new, wkv_state = time_mix(pl["tmix"], h, tx, cfg, pcfg, wkv_state,
-                                    sequential=sequential, fresh=fresh)
+                                    sequential=sequential, fresh=fresh,
+                                    mesh=mesh)
     x = x + a
     h = cm.rms_norm(x, pl["norm2"], cfg.norm_eps)
-    m, cx_new = channel_mix(pl["cmix"], h, cx, cfg)
+    m, cx_new = channel_mix(pl["cmix"], h, cx, cfg, mesh)
     return x + m, (wkv_state, tx_new, cx_new)
 
 
@@ -255,61 +288,87 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
                                        device=x.device)}
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The global shapes of the cache's leaves (`max_seq` is not used: the
+    state is O(1) in the sequence)."""
+    h = cfg.ssm.n_ssm_heads
+    hd, d, n = cfg.d_model // h, cfg.d_model, cfg.n_layers
+    return {"wkv": (n, batch, h, hd, hd), "tmix_x": (n, batch, d),
+            "cmix_x": (n, batch, d), "pos": (), "lengths": (batch,)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               pcfg: ParallelConfig, device="cuda"):
-    """Zero float32 states (L, ...) for every layer, position 0.  The
-    state is O(1) in the sequence: `max_seq` is not used."""
+               pcfg: ParallelConfig, device="cuda", mesh=None):
+    """Zero float32 states (L, ...) for every layer, position 0; on a
+    mesh, this rank's block under ``mesh.cache_specs`` (its requests, and
+    its heads of the WKV state)."""
     _check_family(cfg)
     dev = cm.check_device(device)
-    wkv, tx, cx = _zero_state(cfg, batch, dev)
-    stack = lambda a: a.expand(cfg.n_layers, *a.shape).clone()  # noqa: E731
-    return {"wkv": stack(wkv), "tmix_x": stack(tx), "cmix_x": stack(cx),
-            "pos": 0,
-            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    shapes = cache_shapes(cfg, batch, max_seq)
+    out = {k: torch.zeros(cache_block(shapes[k], k, mesh),
+                          dtype=torch.float32, device=dev)
+           for k in ("wkv", "tmix_x", "cmix_x")}
+    out["pos"] = 0
+    out["lengths"] = torch.zeros(cache_block((batch,), "lengths", mesh),
+                                 dtype=torch.int32, device=dev)
+    return out
 
 
-def _run_cached(params, x, cfg, pcfg, cache, *, sequential):
+def _run_cached(params, x, cfg, pcfg, cache, *, sequential, mesh=None):
     states = []
     for i in range(cfg.n_layers):
         st = (cache["wkv"][i], cache["tmix_x"][i], cache["cmix_x"][i])
-        x, st = _layer(_layer_params(params, i), x, cfg, pcfg, st,
-                       sequential=sequential)
+        x, st = _layer(_layer_params(params, i, mesh), x, cfg, pcfg, st,
+                       sequential=sequential, mesh=mesh)
         states.append(st)
     wkv, tx, cx = (torch.stack(a) for a in zip(*states))
     return x, wkv, tx, cx
 
 
-def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig):
+def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
     """Runs the prompt from the cache's states; returns (cache,
-    last_hidden (B,1,d))."""
+    last_hidden (B,1,d)).  On a mesh, `params`, `batch` and `cache` are
+    this rank's blocks."""
     _check_family(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     x, wkv, tx, cx = _run_cached(params, x, cfg, pcfg, cache,
-                                 sequential=False)
+                                 sequential=False, mesh=mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = {"wkv": wkv, "tmix_x": tx, "cmix_x": cx,
                  "pos": cache["pos"] + s, "lengths": cache["lengths"] + s}
     return new_cache, x[:, -1:]
 
 
-def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
+def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+           mesh=None):
     """One token step.  tokens (B, 1) -> (cache', logits (B, 1, V))."""
     _check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     x, wkv, tx, cx = _run_cached(params, x, cfg, pcfg, cache,
-                                 sequential=True)
+                                 sequential=True, mesh=mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = logits_fn(params, x, cfg)
+    logits = logits_fn(params, x, cfg, mesh)
     new_cache = {"wkv": wkv, "tmix_x": tx, "cmix_x": cx,
                  "pos": cache["pos"] + 1, "lengths": cache["lengths"] + 1}
     return new_cache, logits
 
 
 def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
-    """The cache's specs on a mesh: this family does not run sharded
-    yet (``models.check_mesh``)."""
-    from repro_torch.models.transformer import MESH_TODO
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
-                              f"sharded cache waits for {MESH_TODO}")
+    """The reference's specs of the cache's leaves: the WKV state's heads
+    over 'model', the token-shift states whole over it, the batch over
+    ('pod', 'data').  Where the heads do not divide 'model' the
+    reference cuts the state's k dim instead, which has no sharded path
+    here yet: it raises (`transformer.MESH_TODO`)."""
+    h = cfg.ssm.n_ssm_heads
+    if h % model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} RWKV heads do not divide 'model' = "
+            f"{model_size}; the WKV state cut over its k dim (the "
+            f"reference's layout) waits for {MESH_TODO}")
+    dp = cm.dp_axes()
+    return {"wkv": (None, dp, "model", None, None),
+            "tmix_x": (None, dp, None), "cmix_x": (None, dp, None),
+            "pos": (), "lengths": (dp,)}

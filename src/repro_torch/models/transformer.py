@@ -27,9 +27,13 @@ row-parallel, each followed by one float32 sum over 'model'; the
 residual stream stays whole over 'model' (the reference's
 sequence-parallel residuals are a training layout, not served here).
 Each layer's weights are gathered over 'data' at use (FSDP).  The KV
-cache holds this rank's requests and KV heads (`cache_specs`).  Head
-counts that do not divide by 'model', and the reference's
-sequence-sharded cache layouts, raise.
+cache holds this rank's requests and KV heads (`cache_specs`).  Where
+the KV heads (so also where the q heads) do not divide 'model', the
+cache holds every head and this rank's block of positions instead (the
+reference's fallback; the long-context layout cuts them over ('data',
+'model')): the rank gathers every head's q, k and v columns, writes the
+new K/V that fall in its block, and a decode step merges every rank's
+partial softmax state over its block (`attention_block`).
 """
 from __future__ import annotations
 
@@ -73,7 +77,8 @@ def init(gen, cfg: ModelConfig, device="cuda"):
 
 def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
                     *, causal: bool = True, cache: Optional[tuple] = None,
-                    kv_override: Optional[tuple] = None, mesh=None):
+                    kv_override: Optional[tuple] = None, mesh=None,
+                    seq_axes: tuple = ()):
     """Pre-norm attention with optional KV cache (shared with whisper and
     zamba).
 
@@ -83,18 +88,41 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
     kv_override: (k, v) already projected (whisper's cross-attention): used
     as given, no k_norm, no position embedding.
     mesh: a ``common.MeshContext`` whose rank holds `p`'s tensor-parallel
-    blocks (its heads); the output is summed over 'model'.
+    blocks; the output is summed over 'model'.  Where the KV heads divide
+    'model' and the cache (if any) is cut by heads, the rank holds whole
+    heads (its q heads over its own KV heads) and attends over them
+    alone.  Otherwise (`_whole_heads`) the rank gathers its q, k and v
+    column blocks over 'model' into every head, attends over all of
+    them, and multiplies the output columns of its ``wo`` rows.
+    seq_axes: the axes the cache's sequence is cut over (the reference's
+    fallback layout, or long-context decode): the cache tensors are this
+    rank's block of positions; the rank writes the new K/V that fall in
+    it, and a decode step merges every rank's partial softmax state
+    (`attention.decode_attend_sharded`, or the flash-decode kernels'
+    split and cross-rank combine with attn_impl "pallas").  With
+    `kv_override` and no `cache`, `seq_axes` says the given (k, v) are
+    this rank's block of a cut sequence, all of it valid (whisper's
+    cross cache at decode).
     Returns attn_out.
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    if mesh is not None:                        # this rank's heads
-        hq, hkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
-    q = cm.matmul(x, cm.cast(p["wq"], cfg)).reshape(b, s, hq, hd)
+    whole = mesh is not None and _whole_heads(p, cfg, mesh, seq_axes)
+    if mesh is not None and not whole:          # this rank's heads
+        hq = p["wq"].shape[-1] // hd
+        hkv = (p["wk"].shape[-1] // hd if kv_override is None
+               else kv_override[0].shape[2])
+
+    def project(w, heads):
+        y = cm.matmul(x, cm.cast(w, cfg))
+        if whole and w.shape[-1] != heads * hd:  # columns cut over 'model'
+            y = mesh.gather(y, -1, ("model",))
+        return y.reshape(b, s, heads, hd)
+
+    q = project(p["wq"], hq)
     if kv_override is None:
-        k = cm.matmul(x, cm.cast(p["wk"], cfg)).reshape(b, s, hkv, hd)
-        v = cm.matmul(x, cm.cast(p["wv"], cfg)).reshape(b, s, hkv, hd)
+        k, v = project(p["wk"], hkv), project(p["wv"], hkv)
     else:
         k, v = kv_override
 
@@ -109,7 +137,10 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
     else:
         qr, kr = q, k
 
-    if cache is not None:
+    if cache is not None and seq_axes:
+        out = _attend_seq_sharded(qr, kr, v, cache, pcfg, mesh, seq_axes,
+                                  causal)
+    elif cache is not None:
         k_cache, v_cache, pos, lengths = cache
         if pos + s > k_cache.shape[1]:
             raise ValueError(f"KV cache overflow: position {pos} + {s} new "
@@ -125,41 +156,87 @@ def attention_block(p, x, positions, cfg: ModelConfig, pcfg: ParallelConfig,
         else:       # prefill: attend within the freshly written prefix
             out = att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
                              chunk=pcfg.attn_chunk)
+    elif seq_axes:  # this rank's block of a cut, wholly valid sequence
+        i, n = mesh.block(seq_axes)
+        rows = kr.shape[1]
+        full = torch.full((b,), rows * n, dtype=torch.int32, device=x.device)
+        out = att.decode_attend_sharded(
+            qr, kr, v, full, i * rows, lambda t: mesh.gather(t, 2, seq_axes))
     else:
         out = att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
                          chunk=pcfg.attn_chunk)
 
     out = out.reshape(b, s, hq * hd)
-    if mesh is not None and hq != cfg.n_heads:
-        return _row_parallel(out, cm.cast(p["wo"], cfg), mesh)
-    return cm.matmul(out, cm.cast(p["wo"], cfg))
+    wo = cm.cast(p["wo"], cfg)
+    if mesh is not None and wo.shape[0] != cfg.n_heads * hd:
+        if whole:                     # the output columns of this rank's rows
+            i, _ = mesh.block(("model",))
+            out = out[..., i * wo.shape[0]:(i + 1) * wo.shape[0]]
+        return cm.row_parallel(out, wo, mesh)
+    return cm.matmul(out, wo)
 
 
-def _row_parallel(x, w, mesh):
-    """``x @ w`` of a row-parallel block (`x`'s columns and `w`'s rows are
-    this rank's share): the float32 partial product summed over 'model',
-    then rounded once to the product's dtype, as the whole product is."""
-    out = mesh.sum(cm.matmul_f32(x, w), ("model",))
-    return out.to(torch.promote_types(x.dtype, w.dtype))
+def _whole_heads(p, cfg: ModelConfig, mesh, seq_axes) -> bool:
+    """True where a rank attends over every head: the cache's sequence is
+    cut (`seq_axes`), or the projections are cut over 'model' but not
+    into whole KV heads (KV heads that do not divide 'model'; q = G x kv,
+    so q heads that do not divide fall here too)."""
+    if seq_axes:
+        return True
+    cut = p["wq"].shape[-1] != cfg.n_heads * cfg.resolved_head_dim
+    return cut and cfg.n_kv_heads % mesh.size(("model",)) != 0
+
+
+def _attend_seq_sharded(qr, kr, v, cache, pcfg, mesh, seq_axes, causal):
+    """Attention with a KV cache whose sequence is cut over `seq_axes`
+    (every head in each block): the new K/V written where they fall in
+    this rank's block (a prompt may span ranks); prefill attends within
+    the fresh prompt (every rank all of it, as one device does), a decode
+    step merges every rank's partial softmax state over its block."""
+    k_cache, v_cache, pos, lengths = cache
+    s = qr.shape[1]
+    i, n = mesh.block(seq_axes)
+    rows = k_cache.shape[1]
+    start = i * rows
+    if pos + s > rows * n:
+        raise ValueError(f"KV cache overflow: position {pos} + {s} new "
+                         f"tokens > max_seq {rows * n}")
+    lo, hi = max(pos, start), min(pos + s, start + rows)
+    if lo < hi:
+        k_cache[:, lo - start:hi - start] = kr[:, lo - pos:hi - pos].to(
+            k_cache.dtype)
+        v_cache[:, lo - start:hi - start] = v[:, lo - pos:hi - pos].to(
+            v_cache.dtype)
+    if s > 1:
+        return att.attend(qr, kr, v, causal=causal, impl=pcfg.attn_impl,
+                          chunk=pcfg.attn_chunk)
+    gather = lambda t: mesh.gather(t, 2, seq_axes)  # noqa: E731
+    if pcfg.attn_impl == "pallas":
+        from repro_torch.kernels.decode_attention import ops as dec
+        return dec.decode_attention_sharded(qr, k_cache, v_cache, lengths,
+                                            start, gather)
+    return att.decode_attend_sharded(qr, k_cache, v_cache, lengths, start,
+                                     gather).to(v_cache.dtype)
 
 
 def mlp_block(p, x, cfg: ModelConfig, pcfg: ParallelConfig, mesh=None):
     h = F.silu(cm.matmul(x, cm.cast(p["w_gate"], cfg)))
     u = cm.matmul(x, cm.cast(p["w_up"], cfg))
     if mesh is not None and p["w_down"].shape[0] != cfg.d_ff:
-        return _row_parallel(h * u, cm.cast(p["w_down"], cfg), mesh)
+        return cm.row_parallel(h * u, cm.cast(p["w_down"], cfg), mesh)
     return cm.matmul(h * u, cm.cast(p["w_down"], cfg))
 
 
-def _layer(params, i: int, mesh=None) -> dict:
-    """Layer i's weights (the leading L dim indexed away); on a mesh,
-    gathered over 'data' at use (`MeshContext.fsdp`: what is left is
-    this rank's tensor-parallel block)."""
-    pl = _index(params["layers"], i)
+def _layer(params, i: int, mesh=None, key: str = "layers") -> dict:
+    """Layer i of the stack ``params[key]`` (the leading L dim indexed
+    away); on a mesh, gathered over 'data' at use (`MeshContext.fsdp`:
+    what is left is this rank's tensor-parallel block)."""
+    stack = params[key]
+    pl = _index(stack, i)
     if mesh is None:
         return pl
-    return cm.map_tree(mesh.fsdp, pl, cm.map_tree(lambda spec: spec[1:],
-                                                  mesh.specs["layers"]))
+    return cm.map_tree(mesh.fsdp, pl, cm.map_tree(
+        lambda spec: spec[1:], {k: mesh.specs[key][k] for k in stack}))
 
 
 def _index(tree, i):
@@ -173,7 +250,8 @@ def _dense_layer(pl, x, positions, cfg, pcfg, cache=None, mesh=None):
     0.0 for a dense FFN."""
     h = cm.rms_norm(x, pl["norm_attn"], cfg.norm_eps)
     x = x + attention_block(pl["attn"], h, positions, cfg, pcfg, cache=cache,
-                            mesh=mesh)
+                            mesh=mesh, seq_axes=seq_axes(mesh)
+                            if cache is not None else ())
     h = cm.rms_norm(x, pl["norm_mlp"], cfg.norm_eps)
     if cfg.family == "moe":
         m, aux = moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg, mesh=mesh)
@@ -261,50 +339,70 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
 
 
 #: the ROADMAP item that the sharded layouts this package refuses wait for
-MESH_TODO = "ROADMAP queue 1, item 3 (Slice F), 'Left out of F3a'"
+MESH_TODO = "ROADMAP queue 1, item 1 (Slice F3d: the k-dim state layouts)"
+
+
+def kv_cache_spec(cfg: ModelConfig, long_ctx: bool, model_size: int) -> tuple:
+    """The reference's spec of a (L, B, S, Hkv, hd) KV cache: KV heads over
+    'model' where they divide; else the sequence over 'model' (the
+    flash-decode fallback: each rank's partial softmax state over its
+    block, merged across ranks); for long-context decode (batch 1) the
+    sequence over ('data', 'model')."""
+    dp = cm.dp_axes()
+    if long_ctx:
+        return (None, dp, ("data", "model"), None, None)
+    if cfg.n_kv_heads % model_size == 0:
+        return (None, dp, None, "model", None)
+    return (None, dp, "model", None, None)
 
 
 def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, long_ctx: bool,
                 model_size: int = 16) -> dict:
-    """Specs of the (L, B, S, Hkv, hd) KV cache's leaves (the reference's
-    ``cache_specs``): KV heads over 'model', the batch over ('pod',
-    'data').  The reference's other layouts, the sequence over 'model'
-    where the KV heads do not divide and over ('data', 'model') for
-    long-context decode, raise (`MESH_TODO`), as do q heads that do not
-    divide: a rank holds whole q heads over its own KV heads."""
-    if long_ctx:
-        raise NotImplementedError(f"{cfg.name}: long-context decode (the "
-                                  f"sequence over ('data', 'model')) waits "
-                                  f"for {MESH_TODO}")
-    if cfg.n_heads % model_size or cfg.n_kv_heads % model_size:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} q / {cfg.n_kv_heads} KV heads do not "
-            f"divide over 'model' = {model_size}; heads cut across ranks "
-            f"(the reference's sequence-sharded fallback) wait for "
-            f"{MESH_TODO}")
-    dp = cm.dp_axes()
-    kv = (None, dp, None, "model", None)
-    return {"k": kv, "v": kv, "pos": (), "lengths": (dp,)}
+    """Specs of the KV cache's leaves (the reference's ``cache_specs``):
+    `kv_cache_spec` for K and V, the batch over ('pod', 'data')."""
+    kv = kv_cache_spec(cfg, long_ctx, model_size)
+    return {"k": kv, "v": kv, "pos": (), "lengths": (cm.dp_axes(),)}
+
+
+def cache_block(shape, key: str, mesh) -> tuple:
+    """The shape of this rank's block of a cache leaf of global `shape`
+    under ``mesh.cache_specs[key]`` (`shape` itself without a mesh)."""
+    if mesh is None:
+        return tuple(shape)
+    from repro_torch.core.partitioning import local_shape
+    return local_shape(tuple(shape), mesh.cache_specs[key], mesh.mesh)
+
+
+def seq_axes(mesh, key: str = "k") -> tuple:
+    """The axes the sequence (dim 2) of cache leaf `key` is cut over on
+    `mesh` (``()`` without a mesh, or where it is whole)."""
+    if mesh is None:
+        return ()
+    return cm.entry_axes(mesh.cache_specs[key][2])
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The global shapes of the cache's leaves."""
+    kv = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+          cfg.resolved_head_dim)
+    return {"k": kv, "v": kv, "pos": (), "lengths": (batch,)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                pcfg: ParallelConfig, device="cuda", mesh=None):
     """Zeroed bf16 K/V caches (L, B, max_seq, Hkv, hd), position 0; on a
-    mesh, this rank's block under ``mesh.cache_specs`` (its requests and
-    KV heads)."""
+    mesh, this rank's block under ``mesh.cache_specs`` (its requests, and
+    its KV heads or its block of positions)."""
     dev = cm.check_device(device)
-    hd = cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, hd)
-    lshape = (batch,)
-    if mesh is not None:
-        from repro_torch.core.partitioning import local_shape
-        shape = local_shape(shape, mesh.cache_specs["k"], mesh.mesh)
-        lshape = local_shape(lshape, mesh.cache_specs["lengths"], mesh.mesh)
+    shapes = cache_shapes(cfg, batch, max_seq)
+    kv = cache_block(shapes["k"], "k", mesh)
     return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+        "k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+        "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
         "pos": 0,
-        "lengths": torch.zeros(lshape, dtype=torch.int32, device=dev),
+        "lengths": torch.zeros(cache_block(shapes["lengths"], "lengths",
+                                           mesh),
+                               dtype=torch.int32, device=dev),
     }
 
 

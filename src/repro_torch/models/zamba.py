@@ -30,8 +30,10 @@ bodies, at a finer grain (`_run`).  The shared block's weights are read
 at every site, so autograd sums their gradients over the sites.  Serving
 (prefill, decode) has no backward and no remat.
 
-Not here: the reference's sharding annotations (``cm.shard``,
-``cache_specs``), which are multi-device concerns (ROADMAP Slice F3).
+On a mesh (``mesh=``, a ``common.MeshContext``; serving only) every
+rank runs `mamba2.mamba_block`'s sharded path on its SSM heads and the
+shared block through `attention_block` and `mlp_block` with the mesh;
+the cache is cut by `cache_specs`.
 
 Simplification vs. the published model (as in the reference): the shared
 block consumes the hidden state directly rather than concat(hidden,
@@ -47,9 +49,10 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2
-from repro_torch.models.transformer import (_index, _layer, attention_block,
-                                            embed_tokens, logits_fn,
-                                            mlp_block)
+from repro_torch.models.transformer import (MESH_TODO, _layer,
+                                            attention_block, cache_block,
+                                            embed_tokens, kv_cache_spec,
+                                            logits_fn, mlp_block, seq_axes)
 
 
 def init(gen, cfg: ModelConfig, device="cuda"):
@@ -68,39 +71,29 @@ def _split_groups(cfg: ModelConfig):
     return ae, nb, tail
 
 
-def _mamba_layer(pl, x, cfg, pcfg, st, *, chunked):
+def _mamba_layer(pl, x, cfg, pcfg, st, *, chunked, mesh=None):
     conv_st, ssm_st = st
     h = cm.rms_norm(x, pl["norm"], cfg.norm_eps)
     out, conv_new, ssm_new = mamba2.mamba_block(
         pl["mamba"], h, cfg, conv_state=conv_st, ssm_state=ssm_st,
-        chunked=chunked)
+        chunked=chunked, mesh=mesh)
     return x + out, (conv_new, ssm_new)
 
 
-def _shared_block(ps, x, positions, cfg, pcfg, cache=None):
-    """Weight-tied attention + MLP block (leading dim-1 indexed away)."""
-    sq = _index(ps, 0)
+def _shared_block(sq, x, positions, cfg, pcfg, cache=None, mesh=None):
+    """Weight-tied attention + MLP block (`sq`: its weights, the leading
+    dim-1 indexed away)."""
     h = cm.rms_norm(x, sq["norm_attn"], cfg.norm_eps)
     x = x + attention_block(sq["attn"], h, positions, cfg, pcfg,
-                            causal=True, cache=cache)
+                            causal=True, cache=cache, mesh=mesh,
+                            seq_axes=seq_axes(mesh) if cache is not None
+                            else ())
     h = cm.rms_norm(x, sq["norm_mlp"], cfg.norm_eps)
-    return x + mlp_block(sq["mlp"], h, cfg, pcfg)
-
-
-def _zero_states(cfg, b, device):
-    ssm = cfg.ssm
-    d_in = 2 * cfg.d_model
-    ch = d_in + 2 * ssm.n_groups * ssm.state_dim
-    p_head = d_in // ssm.n_ssm_heads
-    conv = torch.zeros((cfg.n_layers, b, ssm.conv_width - 1, ch),
-                       dtype=torch.float32, device=device)
-    state = torch.zeros((cfg.n_layers, b, ssm.n_ssm_heads, p_head,
-                         ssm.state_dim), dtype=torch.float32, device=device)
-    return conv, state
+    return x + mlp_block(sq["mlp"], h, cfg, pcfg, mesh=mesh)
 
 
 def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
-         chunked):
+         chunked, mesh=None):
     """The layer loop of forward / prefill / decode: the mamba layers in
     order, the shared block after each group's last.  Without `cache`
     every layer starts from zero states; with it, layer i from its conv
@@ -110,18 +103,21 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
     shared-block site is recomputed in the backward: finer than the
     reference's group checkpoints, the same values, and one layer's SSD
     tensors held at a time (a group's six did not fit on an 80 GB card
-    at zamba2-7b's width and 4 x 2048 tokens)."""
+    at zamba2-7b's width and 4 x 2048 tokens).  On a mesh (serving
+    only) each layer's weights are gathered over 'data' at use, the
+    shared block's once per call."""
     ae = cfg.attn_every
     if cache is None and pcfg.remat == "full":
         call = functools.partial(torch.utils.checkpoint.checkpoint,
                                  use_reentrant=False)
     else:
         call = lambda fn, *args, **kw: fn(*args, **kw)  # noqa: E731
+    shared = _layer(params, 0, mesh, "shared")
     for i in range(cfg.n_layers):
         st = ((None, None) if cache is None
               else (cache["conv"][i], cache["ssm"][i]))
-        x, (conv, ssm) = call(_mamba_layer, _layer(params, i), x, cfg, pcfg,
-                              st, chunked=chunked)
+        x, (conv, ssm) = call(_mamba_layer, _layer(params, i, mesh), x, cfg,
+                              pcfg, st, chunked=chunked, mesh=mesh)
         if cache is not None:
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
@@ -129,8 +125,8 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
             g = i // ae
             kv = (None if cache is None else
                   (cache["k"][g], cache["v"][g], cache["pos"], lengths))
-            x = call(_shared_block, params["shared"], x, positions, cfg,
-                     pcfg, kv)
+            x = call(_shared_block, shared, x, positions, cfg, pcfg, kv,
+                     mesh)
     return x
 
 
@@ -145,53 +141,86 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
                                        device=x.device)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               pcfg: ParallelConfig, device="cuda"):
-    """Zero float32 conv and SSM states (L, ...), zeroed bf16 K/V slabs
-    (nb, B, max_seq, Hkv, hd), position 0."""
-    dev = cm.check_device(device)
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The global shapes of the cache's leaves."""
+    ssm = cfg.ssm
+    d_in = 2 * cfg.d_model
+    ch = d_in + 2 * ssm.n_groups * ssm.state_dim
     _, nb, _ = _split_groups(cfg)
-    conv, ssm = _zero_states(cfg, batch, dev)
-    kv_shape = (nb, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"conv": conv, "ssm": ssm,
-            "k": torch.zeros(kv_shape, dtype=torch.bfloat16, device=dev),
-            "v": torch.zeros(kv_shape, dtype=torch.bfloat16, device=dev),
-            "pos": 0,
-            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kv = (nb, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"conv": (cfg.n_layers, batch, ssm.conv_width - 1, ch),
+            "ssm": (cfg.n_layers, batch, ssm.n_ssm_heads,
+                    d_in // ssm.n_ssm_heads, ssm.state_dim),
+            "k": kv, "v": kv, "pos": (), "lengths": (batch,)}
 
 
-def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               pcfg: ParallelConfig, device="cuda", mesh=None):
+    """Zero float32 conv and SSM states (L, ...), zeroed bf16 K/V slabs
+    (nb, B, max_seq, Hkv, hd), position 0; on a mesh, this rank's block
+    of each under ``mesh.cache_specs`` (its requests, conv channels, SSM
+    heads, and KV heads or block of positions)."""
+    dev = cm.check_device(device)
+    shapes = cache_shapes(cfg, batch, max_seq)
+    zeros = lambda k, dt: torch.zeros(  # noqa: E731
+        cache_block(shapes[k], k, mesh), dtype=dt, device=dev)
+    return {"conv": zeros("conv", torch.float32),
+            "ssm": zeros("ssm", torch.float32),
+            "k": zeros("k", torch.bfloat16), "v": zeros("v", torch.bfloat16),
+            "pos": 0, "lengths": zeros("lengths", torch.int32)}
+
+
+def prefill(params, batch, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
     """Runs the prompt from the cache's states (chunked SSD) and writes its
-    KV; returns (cache, last_hidden (B, 1, d))."""
+    KV; returns (cache, last_hidden (B, 1, d)).  On a mesh, `params`,
+    `batch` and `cache` are this rank's blocks."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = (torch.arange(s, device=tokens.device)[None].expand(b, s)
                  + cache["pos"]).to(torch.int32)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     lengths = cache["lengths"] + s
-    x = _run(params, x, positions, cfg, pcfg, cache, lengths, chunked=True)
+    x = _run(params, x, positions, cfg, pcfg, cache, lengths, chunked=True,
+             mesh=mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return dict(cache, pos=cache["pos"] + s, lengths=lengths), x[:, -1:]
 
 
-def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig):
+def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig,
+           mesh=None):
     """One token step (sequential scan).  tokens (B, 1) -> (cache',
     logits (B, 1, V))."""
     b = tokens.shape[0]
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     lengths = cache["lengths"] + 1
-    x = _run(params, x, positions, cfg, pcfg, cache, lengths, chunked=False)
+    x = _run(params, x, positions, cfg, pcfg, cache, lengths, chunked=False,
+             mesh=mesh)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = logits_fn(params, x, cfg)
+    logits = logits_fn(params, x, cfg, mesh)
     return dict(cache, pos=pos + 1, lengths=lengths), logits
 
 
 def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
-    """The cache's specs on a mesh: this family does not run sharded
-    yet (``models.check_mesh``)."""
-    from repro_torch.models.transformer import MESH_TODO
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
-                              f"sharded cache waits for {MESH_TODO}")
+    """The reference's specs of the cache's leaves: the conv state's
+    channels and the SSM state's heads over 'model', the KV slabs as the
+    transformer's (`transformer.kv_cache_spec`: KV heads, else the
+    sequence, over 'model'; the sequence over ('data', 'model') for
+    long-context decode), the batch over ('pod', 'data').  Where the SSM
+    heads do not divide 'model' the reference cuts the state's P dim
+    instead, which has no sharded path here yet: it raises
+    (`transformer.MESH_TODO`)."""
+    h = cfg.ssm.n_ssm_heads
+    if h % model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} SSM heads do not divide 'model' = "
+            f"{model_size}; the SSM state cut over its P dim (the "
+            f"reference's layout) waits for {MESH_TODO}")
+    dp = cm.dp_axes()
+    kv = kv_cache_spec(cfg, long_ctx, model_size)
+    return {"conv": (None, dp, None, "model"),
+            "ssm": (None, dp, "model", None, None),
+            "k": kv, "v": kv, "pos": (), "lengths": (dp,)}

@@ -24,9 +24,11 @@ path (``models.common.MeshContext``: every collective issued through
 ``core/collectives.py`` and counted in `Engine.log`) and returns the
 whole batch's tokens on every rank.  The reference places only the
 params and leaves the batch and cache to GSPMD; the values are the same,
-the communication schedule is the port's own.  The transformer families
-serve on a mesh; the others raise (``models.check_mesh``).  Without a
-mesh both policies are the one-device path.
+the communication schedule is the port's own.  Every family serves on a
+mesh, with the cache layouts of its ``cache_specs`` (KV heads over
+'model', or the sequence where they do not divide); the reference's
+k-dim state layouts raise there.  Without a mesh both policies are the
+one-device path.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 CUDA without a card raises.  With ``ParallelConfig(attn_impl="pallas")``
@@ -162,15 +164,14 @@ class Engine:
     def _mesh_for(self, batch: dict):
         """(this rank's requests of `batch`, the context of their run): the
         batch cut over the policy's axes (positions (3, B, S) on dim 1),
-        whole where B does not divide by them, and the cache's specs with
-        the same batch entry."""
-        cfg, mesh = self.cfg, self.ctx.mesh
+        whole where B does not divide by them, and the specs of the
+        family's cache leaves (their global shapes from its
+        ``cache_shapes``) with the same batch entry, filtered."""
+        mesh = self.ctx.mesh
         b = batch["tokens"].shape[0]
         entry = part.filter_spec((batch_dp_axes(self.scfg.policy),), (b,),
                                  mesh)[0]
-        kv = (cfg.n_layers, b, self.scfg.max_seq, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
-        shapes = {"k": kv, "v": kv, "pos": (), "lengths": (b,)}
+        shapes = self.model.cache_shapes(self.cfg, b, self.scfg.max_seq)
         cspecs = {k: part.filter_spec(
             tuple(entry if e == cm.dp_axes() else e for e in spec),
             shapes[k], mesh) for k, spec in self._cache_specs.items()}

@@ -206,3 +206,83 @@ def test_layout_checks_run_once_per_layout(monkeypatch):
     assert len(calls) == 2
     PK.layout(q.float(), cache, cache, torch.ones(8, dtype=torch.int32))
     assert len(calls) == 3
+
+
+# ----------------------------------------------------------------------------
+# a sequence-sharded cache: every rank's partials over its block, merged
+# ----------------------------------------------------------------------------
+
+
+def _ranks_gather(parts):
+    """A stand-in for ``MeshContext.gather`` over R ranks: each rank's
+    tensor in `parts` (filled in rank order by the caller) joined on dim
+    2, whatever tensor it is handed."""
+    return lambda t: torch.cat(parts, 2)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("hkv,g,hd", [(2, 2, 16), (1, 4, 64), (2, 1, 112)])
+def test_sharded_decode_matches_reference(ranks, hkv, g, hd):
+    """The cache cut into `ranks` blocks of positions: each block's partial
+    softmax state (one split, masked by the lanes' global lengths moved
+    to its origin; a block past a lane's length the empty partial),
+    gathered in rank order and merged, against the reference's plain
+    decode over the whole cache (a lane of length 1, one that ends inside
+    block 1, one that fills the cache)."""
+    s = 256
+    rows = s // ranks
+    args = _inputs(7 * hd + g, 3, hkv, g, s, hd, [1, rows + 5, s])
+    want = np.asarray(RR.decode_attend(*map(jnp.asarray, args)))
+    q, k, v, lens = map(torch.from_numpy, args)
+    packed = []
+    for r in range(ranks):
+        blk = slice(r * rows, (r + 1) * rows)
+        m, l, acc = PR.split_partials(
+            q, k[:, :, blk], v[:, :, blk],
+            PR.block_lengths(lens, r * rows, rows), rows)
+        packed.append(torch.cat([m[..., None], l[..., None], acc], -1))
+    gather = _ranks_gather(packed)
+    outs = [PR.decode_attend_sharded(q, k[:, :, r * rows:(r + 1) * rows],
+                                     v[:, :, r * rows:(r + 1) * rows], lens,
+                                     r * rows, gather)
+            for r in range(ranks)]
+    for out in outs:                 # every rank merges the same partials
+        assert torch.equal(out, outs[0])
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(outs[0].numpy(), want, rtol=0,
+                               atol=SPLIT_RTOL * scale)
+    # the model layout through the wrapper's CPU path: the same numbers
+    qm = q.reshape(3, 1, hkv * g, hd)
+    km, vm = k.transpose(1, 2), v.transpose(1, 2)
+    got = PO.decode_attention_sharded(qm, km[:, :rows], vm[:, :rows], lens,
+                                      0, gather)
+    assert torch.equal(got.reshape(outs[0].shape), outs[0])
+
+
+def test_gathered_partials_are_one_workspace():
+    """`ref.gather_partials` unpacks every rank's (m, l, acc) into views of
+    one flat float32 workspace, m then l then acc, the layout the combine
+    kernel reads (``kernel.combine`` checks it), in rank order on the
+    split dim; `block_lengths` clamps the lanes' lengths to the block."""
+    b, hkv, s, g, hd = 2, 3, 2, 2, 16
+    parts = [torch.randn(b, hkv, s, g, 2 + hd) for _ in range(3)]
+    p0 = parts[0]
+    m, l, acc = PR.gather_partials(p0[..., 0], p0[..., 1], p0[..., 2:],
+                                   _ranks_gather(parts))
+    n = m.numel()
+    assert m.shape == l.shape == (b, hkv, 3 * s, g)
+    assert acc.shape == (b, hkv, 3 * s, g, hd)
+    assert m.is_contiguous() and l.data_ptr() == m.data_ptr() + 4 * n
+    assert acc.data_ptr() == l.data_ptr() + 4 * n
+    assert torch.equal(m[:, :, s:2 * s], parts[1][..., 0])
+    assert torch.equal(acc[:, :, 2 * s:], parts[2][..., 2:])
+    lens = torch.tensor([0, 5, 9, 40], dtype=torch.int32)
+    assert PR.block_lengths(lens, 8, 16).tolist() == [0, 0, 1, 16]
+
+
+def test_split_alone_raises_on_cpu_tensors():
+    """The split kernel's wrapper takes CUDA tensors only (no fallback)."""
+    q = torch.zeros(1, 1, 2, 16)
+    c = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError):
+        PK.split(q, c, c, torch.ones(1, dtype=torch.int32))

@@ -311,35 +311,53 @@ def test_expert_parallel_matches_reference_shard_map(runs):
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "whisper-base"])
 def test_mesh_refused_for_unported_families(arch):
-    """A mesh with 'data' or 'model' > 1 given to a family with no sharded
-    path raises, in `check_mesh` and the engine, never runs replicated;
-    those families' cache_specs raise too."""
+    """Every family passes `check_mesh` on a mesh with 'data' and 'model'
+    > 1 (the rwkv, hybrid and encdec families serve sharded since F3c;
+    ``tests/test_torch_serve_mesh_families.py`` holds them to the
+    reference); what is refused is the layouts with no sharded path yet,
+    the reference's k-dim state layouts where the SSM heads do not
+    divide 'model': the family's cache_specs and the engine raise with
+    the ROADMAP item's name, never run replicated.  Whisper has no such
+    layout."""
     cfg = reduce_config(get_config(arch))
     mesh = MeshShape(("data", "model"), (2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_mesh(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, ParallelConfig(), ServeConfig(), {}, mesh=mesh,
-               device="cpu")
-    from repro_torch.models import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg).cache_specs(cfg, ParallelConfig(), False, 2)
+    assert check_mesh(cfg, mesh) is True
     assert check_mesh(cfg, MeshShape(("pod",), (1,))) is False
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    assert model.cache_specs(cfg, ParallelConfig(), False, 2)["lengths"] \
+        == (("pod", "data"),)
+    if cfg.family == "encdec":
+        return
+    wide = MeshShape(("data", "model"), (1, 4))     # 2 SSM heads over 4
+    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
+        model.cache_specs(cfg, ParallelConfig(), False, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
+        Engine(cfg, ParallelConfig(), ServeConfig(), {}, mesh=wide,
+               device="cpu")
 
 
 def test_heads_that_do_not_divide_and_long_ctx_raise():
-    """MLR over a 'model' axis that does not divide the q or KV heads, and
-    the reference's long-context cache layout, raise."""
+    """The transformer's cache_specs equal the reference's in all three of
+    its layouts: KV heads over 'model' where they divide, the sequence
+    over 'model' where the q or KV heads do not (MLR over 'model' = 2
+    and 4 of 6 q / 3 KV heads), and the sequence over ('data', 'model')
+    for long-context decode.  None raises any more; the engine places
+    such a model (``tests/test_torch_serve_mesh_families.py`` serves
+    it)."""
     cfg = dataclasses.replace(reduce_config(get_config("tinyllama-1.1b")),
                               n_heads=6, n_kv_heads=3)
-    params = transformer.init(0, cfg, device="cpu")
-    for sizes in ((1, 2), (1, 4)):
-        mesh = MeshShape(("data", "model"), sizes)
-        with pytest.raises(NotImplementedError, match="do not divide"):
-            Engine(cfg, ParallelConfig(), ServeConfig(), params, mesh=mesh,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="long-context"):
-        transformer.cache_specs(cfg, ParallelConfig(), True, 1)
+    rcfg6 = dataclasses.replace(ref_reduce(ref_get_config("tinyllama-1.1b")),
+                                n_heads=6, n_kv_heads=3)
+    for size in (2, 4):
+        for long_ctx in (False, True):
+            want = RT.cache_specs(rcfg6, RefPCfg(), long_ctx, size)
+            got = transformer.cache_specs(cfg, ParallelConfig(), long_ctx,
+                                          size)
+            assert got == {k: tuple(v) for k, v in want.items()}
+        assert got["k"][2] == ("data", "model")
+    assert transformer.cache_specs(cfg, ParallelConfig(), False,
+                                   4)["k"][2] == "model"
     rcfg = ref_reduce(ref_get_config("tinyllama-1.1b"))
     want = RT.cache_specs(rcfg, RefPCfg(), False, 2)
     got = transformer.cache_specs(reduce_config(get_config("tinyllama-1.1b")),

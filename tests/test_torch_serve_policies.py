@@ -120,3 +120,21 @@ def test_in_the_ports_benches():
     """The reference lists serve_policies in its runner
     (benchmarks/run.py:32); so does the port."""
     assert "repro_torch.benchmarks.serve_policies" in bench_run.BENCHES
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b"])
+def test_host_params_are_the_engines_cast_of_init(arch):
+    """`host_params` draws a leaf at a time from one generator in sorted
+    order, as ``init_from_shapes`` does for the whole tree, and keeps each
+    leaf in the dtype the engine casts it to: the same numbers as the
+    model's init cast by ``cast_weights``, in its dtypes."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import get_model
+    cfg = reduce_config(get_config(arch))
+    want = cm.flatten_paths(cm.cast_weights(
+        get_model(cfg).init(0, cfg, device="cpu"), cfg))
+    got = cm.flatten_paths(serve_policies.host_params(cfg,
+                                                      torch.device("cpu")))
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k

@@ -359,3 +359,164 @@ def ep_cfg():
     cfg = serve_cfg("granite-moe-3b-a800m")
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=1.0))
+
+
+# ----------------------------------------------------------------------------
+# test_torch_serve_mesh_families
+# ----------------------------------------------------------------------------
+
+#: (name, arch, overrides, mesh shape, policies): every family on a (2, 2)
+#: ('data', 'model') mesh, and on a (1, 4) one the heads that do not
+#: divide 'model' (the sequence-sharded cache): q and KV 6/3, q 8 | 4
+#: over KV 2, zamba's attention 6/6 over 4 SSM heads, whisper 6/6
+FAMILY_CASES = (
+    ("rwkv6-3b", "rwkv6-3b", {}, (2, 2), ("mlr", "slr")),
+    ("zamba2-7b", "zamba2-7b", {}, (2, 2), ("mlr", "slr")),
+    ("whisper-base", "whisper-base", {}, (2, 2), ("mlr", "slr")),
+    ("tinyllama-q6-kv3", "tinyllama-1.1b", {"n_heads": 6, "n_kv_heads": 3},
+     (1, 4), ("mlr",)),
+    ("tinyllama-q8-kv2", "tinyllama-1.1b", {"n_heads": 8, "n_kv_heads": 2},
+     (1, 4), ("mlr",)),
+    ("zamba2-7b-kv6", "zamba2-7b",
+     {"n_heads": 6, "n_kv_heads": 6, "n_ssm_heads": 4}, (1, 4), ("mlr",)),
+    ("whisper-base-h6", "whisper-base", {"n_heads": 6, "n_kv_heads": 6},
+     (1, 4), ("mlr",)),
+)
+#: the archs whose long-context layout (the sequence over ('data',
+#: 'model') at batch 1) is held on a (2, 2) mesh
+LONG_CASES = ("tinyllama-1.1b", "zamba2-7b")
+FAM_B, FAM_PROMPT, FAM_NEW, FAM_MAX_SEQ = 4, 12, 8, 32
+
+
+def with_overrides(cfg, overrides: dict):
+    """`cfg` with `overrides` replaced (``n_ssm_heads`` in its ``ssm``);
+    either package's config."""
+    ov = dict(overrides)
+    if "n_ssm_heads" in ov:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, n_ssm_heads=ov.pop("n_ssm_heads")))
+    return dataclasses.replace(cfg, **ov)
+
+
+def family_batch(cfg, b: int = FAM_B) -> dict:
+    """`b` prompts of FAM_PROMPT tokens from numpy seed 2; whisper's frame
+    embeddings, 0.1 x standard normal from seed 3, float32."""
+    out = {"tokens": np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, FAM_PROMPT), dtype=np.int32)}
+    if cfg.family == "encdec":
+        out["enc_embed"] = (0.1 * np.random.default_rng(3).standard_normal(
+            (b, cfg.enc_seq_len, cfg.d_model))).astype(np.float32)
+    return out
+
+
+def serve_families_rank(rank: int, n: int, ref_path: str) -> dict:
+    """4 ranks: each of FAMILY_CASES from the reference's params through
+    ``Engine(..., mesh=...)`` under its policies with attn_impl "chunked",
+    and under MLR with "pallas" (the kernels' plain versions) beside the
+    port's one-process engine (policy "one"), a float32 cache
+    (`Float32Cache`); each of LONG_CASES at batch 1 through the model's
+    own prefill and decode with a ``MeshContext`` whose cache specs are
+    the long-context layout.  Per run: the whole batch's tokens and each
+    decode step's logits of this rank's lanes and their rows, and each
+    decode step's (wire bytes, calls) from the ``CommLog``; the seconds
+    of the rank's work."""
+    import time
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core import partitioning as part
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models import get_model, logits_fn
+    from repro_torch.serve.engine import Engine, ServeConfig, param_specs
+
+    t0 = time.perf_counter()
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    meshes = {s: make_test_mesh(s, ("data", "model"), device_type="cpu")
+              for s in ((2, 2), (1, 4))}
+    out = {}
+
+    def params_of(name, cfg):
+        return params_from_reference(
+            {k[len(name) + 1:]: v for k, v in ref.items()
+             if k.startswith(name + "|")}, cfg)
+
+    def record(key, toks, logits, steps):
+        out[f"{key}|tokens"] = _np(toks)
+        out[f"{key}|logits"] = np.stack([_np(lg) for lg in logits])
+        out[f"{key}|comm"] = np.array(steps, dtype=np.int64).reshape(-1, 2)
+
+    for name, arch, ov, shape, policies in FAMILY_CASES:
+        cfg = with_overrides(serve_cfg(arch), ov)
+        params = params_of(name, cfg)
+        runs = [("chunked", p) for p in policies]
+        if cfg.family != "ssm":             # the attention kernels' path
+            runs += [("pallas", "one"), ("pallas", "mlr")]
+        for impl, policy in runs:
+            one = policy == "one"
+            eng = Engine(cfg, ParallelConfig(attn_impl=impl, remat="none"),
+                         ServeConfig(max_seq=FAM_MAX_SEQ,
+                                     policy="mlr" if one else policy),
+                         params, mesh=None if one else meshes[shape],
+                         device="cpu")
+            eng.model = Float32Cache(eng.model)
+            logits, marks, decode = [], [], eng.decode_fn
+
+            def recorded(*a, _decode=decode, **k):
+                cache, lg = _decode(*a, **k)
+                logits.append(lg[:, 0])
+                return cache, lg
+
+            def observer(kind, *, done, lengths, _eng=eng):
+                if _eng.log is not None:
+                    marks.append((_eng.log.wire_bytes, _eng.log.ops))
+
+            eng.decode_fn = recorded
+            toks = eng.generate(family_batch(cfg), FAM_NEW,
+                                observer=observer)
+            key = f"{name}|{impl}|{policy}"
+            record(key, toks, logits, [(b[0] - a[0], b[1] - a[1])
+                                       for a, b in zip(marks, marks[1:])])
+            i, k = (0, 1) if one else eng.ctx.block(eng.ctx.batch_axes)
+            out[f"{key}|rows"] = np.arange(i * FAM_B // k,
+                                           (i + 1) * FAM_B // k)
+
+    mesh = meshes[(2, 2)]
+    for arch in LONG_CASES:
+        cfg = serve_cfg(arch)
+        model = get_model(cfg)
+        pcfg = ParallelConfig(attn_impl="chunked", remat="none")
+        specs = param_specs(cfg, "mlr", mesh)
+        shapes = model.cache_shapes(cfg, 1, FAM_MAX_SEQ)
+        cspecs = {k: part.filter_spec(spec, shapes[k], mesh) for k, spec
+                  in model.cache_specs(cfg, pcfg, True, 2).items()}
+        ctx = cm.MeshContext(mesh, specs, (), cspecs)
+        params = cm.cast_weights(part.shard_tree(
+            params_of(f"long|{arch}", cfg), specs, mesh), cfg)
+        cache = Float32Cache(model).init_cache(cfg, 1, FAM_MAX_SEQ, pcfg,
+                                               device="cpu", mesh=ctx)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in family_batch(cfg, 1).items()}
+        with torch.inference_mode():
+            cache, h = model.prefill(params, batch, cache, cfg, pcfg,
+                                     mesh=ctx)
+            lg = logits_fn(params, h, cfg, mesh=ctx)[:, -1]
+            toks, logits, steps = [], [], []
+            for _ in range(FAM_NEW):
+                tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+                toks.append(tok)
+                if len(toks) == FAM_NEW:
+                    break
+                before = (ctx.log.wire_bytes, ctx.log.ops)
+                cache, lg = model.decode(params, tok, cache, cfg, pcfg,
+                                         mesh=ctx)
+                steps.append((ctx.log.wire_bytes - before[0],
+                              ctx.log.ops - before[1]))
+                lg = lg[:, 0]
+                logits.append(lg)
+        record(f"long|{arch}", torch.cat(toks, 1), logits, steps)
+        out[f"long|{arch}|rows"] = np.arange(1)
+        out[f"long|{arch}|k_block"] = np.array(cache["k"].shape)
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+    return out
