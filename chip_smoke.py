@@ -5,8 +5,9 @@ the paper's tables and figures, the serving path whose captured traffic
 feeds it, the training paths (the transformer, the hybrid and the
 encoder-decoder families), the paper's Cascaded-IO datapath matmul and
 its benchmark, RWKV-6 training, the cross-pod gradient sync of the
-data-parallel train step over ranks that share the card, and serving on
-a ('data', 'model') mesh of the same ranks.
+data-parallel train step over ranks that share the card, serving on
+a ('data', 'model') mesh of the same ranks, and rwkv6-3b served on a
+(1, 16) mesh of 16 ranks (the WKV state cut over its k dim).
 
     python3 chip_smoke.py
 
@@ -152,8 +153,10 @@ and the script exits non-zero):
              group's buckets in ``failed_buckets``, every other cell
              equal to the golden, and the plain version never runs;
              ``streaming=False`` equals ``streaming=True``.  Then
-             ``repro_torch.benchmarks.paper_fig_scale.main()`` at full
-             size (60, 240 and 960 cells; sync, stream_cold, stream_warm,
+             ``repro_torch.benchmarks.paper_fig_scale.main()`` at its
+             smallest full size (60 cells, FIG_SCALE_SIZES; 240 and 960
+             too until serve_kdim took their time; sync, stream_cold,
+             stream_warm,
              each a fresh process, the first two building the kernel with
              nvcc into fresh directories; the 2e4-cell prune child): per
              size every bandwidth and the checksum equal the golden's,
@@ -198,11 +201,11 @@ and the script exits non-zero):
              resume check (2 layers at full width): save after step 2,
              restore, take step 3: the same loss as the uninterrupted run.
 17. train_hybrid  the hybrid family trained the same way and held the same
-             way (`train_checked`): zamba2-7b at full width cut to 9 of
-             81 layers (one group with its shared block's site and a
-             3-layer tail; cut below serve_hybrid's 15 for the time
-             budget; bf16 compute, float32 master weights, m and v, the
-             SSM leaves included), `train`'s batches (`SyntheticLM` seed
+             way (`train_checked`): zamba2-7b at full width cut to 6 of
+             81 layers (one group with its shared block's site; cut
+             below serve_hybrid's 15 for the time budget; bf16
+             compute, float32 master weights, m and v, the SSM leaves
+             included), `train`'s batches (`SyntheticLM` seed
              0, 4 x 2048), 6 steps; per step the forward kernel twice
              (the site, again in its recompute) and the backward once,
              all at hd 112.
@@ -286,12 +289,13 @@ and the script exits non-zero):
              and SLR and granite-moe-3b-a800m under MLR (experts over
              'model', capacity factor 40 so no assignment is dropped, as
              the one-process dense FFN drops none), full width cut to 2
-             layers, 8 x 64 prompt tokens + 16 greedy, attn_impl "pallas",
+             layers, 8 x 64 prompt tokens + 8 greedy (16 until the
+             budget took serve_kdim's time), attn_impl "pallas",
              through ``Engine(..., mesh=...)``, bf16, and float32 (a
              float32 cache) with 8 new tokens, MLR only (for the
              budget); per rank
              and run the flash launches 2 and decode and its combine 2 x
-             15 (float32 2 x 7), exact, each on the rank's own
+             7, exact, each on the rank's own
              heads (MLR: 16/2 of tinyllama's 32/4, 12/4 of granite's
              24/8), and the decode steps' CommLog bytes and calls equal to
              ``serve_policies.decode_comm``; rank 0 gathers every run's
@@ -304,7 +308,8 @@ and the script exits non-zero):
              experts, so none flips); per-step wall and staged bytes
              (loopback and PCIe, not NVLink: no limit).  Then the
              same ranks serve as a (1, 4) mesh (MLR; no FSDP
-             gather) every family that F3a left out, at full width:
+             gather; 8 x 64 + 16 greedy) every family that F3a left
+             out, at full width:
              phi3-medium-14b at 2 layers (10 KV heads over 4: the
              cache's sequence is cut over 'model', each rank runs the
              split kernel on its block and the combine kernel merges
@@ -313,10 +318,28 @@ and the script exits non-zero):
              `ref.combine_splits` on the same partials), rwkv6-3b at 2
              (no attention kernel), zamba2-7b at 6 (one shared-block
              site, hd 112: 1 and 1 x 15), whisper-base at full size over
-             1500 frames (6 and 6 x 15), each bf16 and float32 and held
-             as above; its seconds and each run's median step are
-             printed.
-24. kernels  one JSON line: each kernel with its launches on its main
+             1500 frames (6 and 6 x 15), and zamba2-7b with 14 SSM heads
+             of P 512 in place of its 112 (`SM_VARIANTS`) at 2 layers,
+             whose SSM state is cut over P (each rank P/4 channels of
+             every head, its normed channels relaid into w_out's row
+             block), each bf16 and float32 and held as above; its
+             seconds and each run's median step are printed.
+24. serve_kdim  rwkv6-3b at full width (40 heads of 64), 2 layers, on a
+             (1, 16) ('data', 'model') mesh of 16 spawned ranks sharing
+             the card over gloo (host-staged): 40 heads do not divide
+             16, so the WKV state is cut over its k dim (4 rows of every
+             head per rank; r, k, v gathered over 'model', the partial
+             y summed in float32).  Each rank draws its blocks of the
+             seed-0 params a leaf at a time and serves them through
+             ``Engine(..., mesh=..., local=True)`` under MLR, 8 x 64 +
+             16 greedy in bf16 and + 8 in float32 (a float32 state); no
+             kernel launches (counters read), each rank's state (2, 8,
+             40, 4, 64), every decode step's CommLog bytes and calls
+             equal to ``serve_policies.decode_comm``; rank 0 holds both
+             runs to one process's `Engine` on the whole tree with
+             serve_mesh's bounds.  Prints the phase's seconds, the
+             median decode step and the bytes and calls per token.
+25. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -379,6 +402,13 @@ GOLDEN_CAPTURE = GOLDEN_FIGS.with_name("fig_serve_capture.npz")
 #: kernel launches a figure makes beyond one per shape group of its
 #: sweeps: Fig. 12's cross-check `engine.simulate` of one cell
 FIGURE_EXTRA_LAUNCHES = {"fig12": 1}
+#: phase `sweep_scale`: fig_scale's sizes as workload counts (the
+#: benchmark's full sizes are 6, 24 and 96).  The 960- and 240-cell sizes,
+#: ~30-45 s of fresh child processes each, went for the time budget when
+#: `serve_kdim` came (with both 60 and 240 the script took 589.5 and
+#: 613.5 s on one NVIDIA H100 80GB HBM3 at 700 W).  The golden holds each
+#: size's rows, and the gate's ratio was 9.77 at 60 cells in that run
+FIG_SCALE_SIZES = (6,)
 #: printed rows that carry times or launch counts, not results
 TIMING_ROWS = ("# sweep:", "# pallas", "# plain")
 #: keys of a figure's JSON section that are its record, not its `extra`,
@@ -489,10 +519,11 @@ RESUME_LAYERS = 2
 #: decoder tokens (whisper's published text context) over 1500 frames
 #: from `make_batch`, 6 steps; phase `train_hybrid` trains zamba2-7b at
 #: full width cut to TRAIN_HYBRID_LAYERS (one group with its shared-block
-#: site and a 3-layer tail; below serve_hybrid's 15, for the time budget
-#: beside `serve_mesh`) on `train`'s batches
+#: site; below serve_hybrid's 15, for the time budget beside `serve_mesh`
+#: and `serve_kdim`: 9 with a 3-layer tail until the latter came) on
+#: `train`'s batches
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448
-TRAIN_HYBRID_LAYERS = 9
+TRAIN_HYBRID_LAYERS = 6
 #: float32 replay, kernels against their plain versions: the loss to this
 #: relative error, every gradient leaf to this fraction of its max |g|
 #: (only summation order differs: H100 runs measured 1.2e-7 and 7.0e-7)
@@ -607,6 +638,10 @@ POD_WIRE = {"cascaded": 786432, "dedicated": 786432,
 #: rank 0 against one process's `Engine` on the same params and batch
 SM_MESH = ((2, 2), ("data", "model"))
 SM_BATCH, SM_PROMPT, SM_NEW, SM_MAX_SEQ = 8, 64, 16, 128
+#: new tokens of the SM_MESH runs' bf16 runs, for the budget beside
+#: `serve_kdim` (16 until then): their decode steps are nearly all the
+#: FSDP gathers of every layer's weights, the same each step
+SM_NEW_FSDP = 8
 #: new tokens of the float32 runs, for the budget: every step gathers
 #: twice the bf16 run's bytes (one NVIDIA H100 80GB HBM3 at 700 W, a slow
 #: host: 60.0 s for the phase with 16)
@@ -625,11 +660,22 @@ SM_RUNS = ((SERVE_ARCH, 2, ("mlr", "slr")), (MOE_ARCH, 2, ("mlr",)))
 #: 'model' and every decode step merges the ranks' partials with the
 #: combine kernel), rwkv6-3b's 40 heads, zamba2-7b's 112 SSM and 32 KV
 #: heads (6 layers: one shared-block site), whisper-base at full depth
-#: over its 1500 frames (None).  Each rank's whole tree is made on the
-#: card from seed 0 and kept on the host until the engine cuts it
+#: over its 1500 frames (None), and zamba2-7b's SSM state cut over P (2
+#: layers; SM_VARIANTS).  Each rank's whole tree is made on the card from
+#: seed 0 and kept on the host until the engine cuts it
 SM_WIDE_MESH = ((1, 4), ("data", "model"))
 SM_WIDE_RUNS = (("phi3-medium-14b", 2, ("mlr",)), (RWKV_ARCH, 2, ("mlr",)),
-                (HYBRID_ARCH, 6, ("mlr",)), (ENCDEC_ARCH, None, ("mlr",)))
+                (HYBRID_ARCH, 6, ("mlr",)), (ENCDEC_ARCH, None, ("mlr",)),
+                ("zamba2-7b-ssm14", 2, ("mlr",)))
+#: runs of a published arch with its SSM heads replaced: name -> (arch,
+#: n_ssm_heads).  zamba2-7b at full width (d_model 3584, d_inner 7168,
+#: n_groups 2) with 14 SSM heads of P = 512 in place of its 112 of 64:
+#: no published config reaches the P-cut SSM state (heads that do not
+#: divide 'model') below 'model' = 32, and the head counts that divide
+#: d_inner but not 4 are 1, 2, 7 and 14; 14 over 4 is 3.5 heads per rank,
+#: so every rank's rows of w_out straddle heads, as rwkv6-3b's columns
+#: do in `serve_kdim`
+SM_VARIANTS = {"zamba2-7b-ssm14": (HYBRID_ARCH, 14)}
 #: float32 decode logits against one process: this fraction of each
 #: step's max |logit|, at every (request, step) that no router flip and no
 #: earlier token difference reaches
@@ -638,6 +684,21 @@ SM_LOGIT_TOL = 1e-5
 #: top-2 logit gap is within this (twice phase `serve`'s bf16 bound), or
 #: after a router flip in its request
 SM_NEAR_TIE = 2 * SERVE_TOL
+#: phase `serve_kdim`: rwkv6-3b at full width (d_model 2560, 40 heads of
+#: 64), KD_LAYERS of its 32 layers, on a KD_MESH ('data', 'model') mesh
+#: of KD_RANKS spawned ranks sharing the card over gloo (every transfer
+#: host-staged; NCCL refuses two ranks on one device, so four cards
+#: cannot host it either).  40 heads do not divide 16, so the WKV state
+#: is cut over its k dim, 4 of every head's 64 rows per rank (no 'model'
+#: of 4 or 8 reaches that layout at this width: 40 divides both).
+#: MLR, SM_BATCH x SM_PROMPT + SM_NEW greedy in bf16 and + SM_NEW_F32
+#: in float32 with a float32 state, through ``Engine(..., mesh=...,
+#: local=True)``: each rank draws the seed-0 params a leaf at a time on
+#: the card and keeps its block (16 whole float32 trees would be ~2.0 GB
+#: each), and rank 0 holds the runs against one process's `Engine` on
+#: the whole tree with `serve_mesh`'s bounds
+KD_MESH = ((1, 16), ("data", "model"))
+KD_RANKS, KD_LAYERS = 16, 2
 
 
 def float64_mode():
@@ -1015,8 +1076,12 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
                                  (SM_WIDE_MESH, SM_WIDE_RUNS)):
             mesh = make_test_mesh(*mesh_shape, device_type=dev.type)
             sizes = axis_sizes(mesh)
-            for arch, layers, policies in runs:
+            for run_name, layers, policies in runs:
+                arch, ssm_heads = SM_VARIANTS.get(run_name, (run_name, None))
                 base = get_config(arch)
+                if ssm_heads is not None:
+                    base = dataclasses.replace(base, ssm=dataclasses.replace(
+                        base.ssm, n_ssm_heads=ssm_heads))
                 if layers is not None:
                     base = dataclasses.replace(base, n_layers=layers)
                 if base.moe.n_experts:      # every assignment kept, as the
@@ -1072,13 +1137,15 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
                         check_combines[0] = sm_attention_layers(cfg) \
                             if seq else 0
                         if one and dtype == "bfloat16" and cfg.moe.n_experts:
-                            forced[:] = out[f"{arch}|{dtype}|mlr"]["_keep"][2]
+                            forced[:] = out[f"{run_name}|{dtype}|mlr"][
+                                "_keep"][2]
                         sync()
                         fa_kernel.flash_attention_fwd.launches = 0
                         dec_kernel.decode_attention.launches = 0
                         dec_kernel.decode_attention.combine_launches = 0
                         t0 = time.perf_counter()
-                        new = SM_NEW if dtype == "bfloat16" else SM_NEW_F32
+                        new = SM_NEW_F32 if dtype == "float32" else \
+                            SM_NEW_FSDP if mesh_shape == SM_MESH else SM_NEW
                         toks = eng.generate(batch, new, observer=observer)
                         sync()
                         wall = time.perf_counter() - t0
@@ -1086,7 +1153,7 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
                             fa_kernel.flash_attention_fwd.launches,
                             dec_kernel.decode_attention.launches,
                             dec_kernel.decode_attention.combine_launches]
-                        label = f"{arch}|{dtype}|{policy}"
+                        label = f"{run_name}|{dtype}|{policy}"
                         run = sm_run_stats(label, cfg, policy, sizes,
                                            launches, heads, steps, wall, new,
                                            seq)
@@ -1113,15 +1180,16 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
                         torch.cuda.empty_cache()
                 if rank == 0:
                     for dtype in ("bfloat16", "float32"):
-                        want = out[f"{arch}|{dtype}|one"].pop("_keep")
+                        want = out[f"{run_name}|{dtype}|one"].pop("_keep")
                         for policy in sm_policies(policies, dtype):
-                            run = out[f"{arch}|{dtype}|{policy}"]
+                            label = f"{run_name}|{dtype}|{policy}"
+                            run = out[label]
                             run["vs_one_process"] = sm_compare(
-                                f"{arch}|{dtype}|{policy}", run.pop("_keep"),
+                                label, run.pop("_keep"),
                                 want, dtype, base.n_layers)
                 del params
                 torch.cuda.empty_cache()
-                marks[f"serve_mesh_{arch}"] = time.time() - t_spawn
+                marks[f"serve_mesh_{run_name}"] = time.time() - t_spawn
     finally:
         (fa_ops.flash_attention, dec_ops.decode_attention,
          dec_ops.decode_attention_sharded, moe.route,
@@ -1256,6 +1324,149 @@ def sm_compare(label, got, want, dtype, layers) -> dict:
             "near_tie_token_differences": ties,
             "requests_with_router_flips": sum(f < SM_PROMPT + n
                                               for f in flip)}
+
+
+def kdim_rank(rank: int, world: int, init: str, out_dir: str,
+              t_spawn: float) -> None:
+    """One rank of phase `serve_kdim`, in a spawned process, the card
+    shared with the others: its gloo process group, `kdim_checks`, the
+    results as ``rank<r>.json`` in `out_dir`.  A failed check raises,
+    which fails the spawn and the phase."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    marks = {"started": time.time() - t_spawn}
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        res = kdim_checks(rank, dev, marks, t_spawn)
+        pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def kdim_checks(rank: int, dev, marks: dict, t_spawn: float) -> dict:
+    """Phase `serve_kdim`'s work in one rank of a KD_MESH mesh: this
+    rank's blocks of rwkv6-3b's seed-0 params drawn a leaf at a time
+    (`serve_policies.host_params`), then under MLR a bf16 run and a
+    float32 one (a float32 state) through ``Engine(..., local=True)``,
+    the kernels' launch counters reset just before each and read just
+    after (serving RWKV-6 launches none), every decode step's CommLog
+    against ``serve_policies.decode_comm`` (exact), each step's wall
+    time.  Rank 0 also serves the whole tree in one process and holds
+    every run to it (`sm_compare`)."""
+    import torch
+
+    from repro_torch.benchmarks import serve_policies
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.core.comm import axis_sizes
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import Engine, ServeConfig, param_specs
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def mark(part_name):
+        sync()
+        marks[part_name] = time.time() - t_spawn
+
+    mesh = make_test_mesh(*KD_MESH, device_type=dev.type)
+    sizes = axis_sizes(mesh)
+    base = dataclasses.replace(get_config(RWKV_ARCH), n_layers=KD_LAYERS,
+                               dtype="float32")
+    specs = cm.flatten_paths(param_specs(base, "mlr", mesh))
+    coord = {a: int(c) for a, c in zip(mesh.mesh_dim_names,
+                                        mesh.get_coordinate())}
+    blocks = serve_policies.host_params(
+        base, dev, block=lambda path, leaf: part.local_shard(
+            leaf, specs[path], mesh, coord))
+    whole = get_model(base).init(0, base, device=dev) if rank == 0 else None
+    mark("params")
+    import numpy as np
+    prompt = np.random.default_rng(3).integers(0, 32000, (SM_BATCH,
+                                                          SM_PROMPT))
+    pcfg = ParallelConfig(attn_impl="pallas", remat="none")
+    out, keep = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        batch = {"tokens": torch.from_numpy(prompt % cfg.vocab_size).to(
+            torch.int32)}
+        new = SM_NEW if dtype == "bfloat16" else SM_NEW_F32
+        for policy in ("mlr", "one") if rank == 0 else ("mlr",):
+            one = policy == "one"
+            eng = Engine(cfg, pcfg, ServeConfig(max_seq=SM_MAX_SEQ,
+                                                policy="mlr"),
+                         whole if one else blocks,
+                         mesh=None if one else mesh, device=dev,
+                         local=not one)
+            if dtype == "float32":
+                eng.model = Float32Cache(eng.model)
+            logits, steps, states = [], [], set()
+            for name in ("prefill_fn", "decode_fn"):
+                def rec(*a, _fn=getattr(eng, name), **kw):
+                    states.add(tuple(a[2]["wkv"].shape))
+                    cache, lg = _fn(*a, **kw)
+                    logits.append(lg[:, -1].float())
+                    return cache, lg
+                setattr(eng, name, rec)
+
+            def observer(kind, *, done, lengths, _eng=eng):
+                sync()
+                log = _eng.log
+                steps.append((time.perf_counter(),
+                              log.wire_bytes if log else 0,
+                              log.staged_bytes if log else 0,
+                              log.ops if log else 0))
+
+            sync()
+            fa_kernel.flash_attention_fwd.launches = 0
+            dec_kernel.decode_attention.launches = 0
+            dec_kernel.decode_attention.combine_launches = 0
+            t0 = time.perf_counter()
+            toks = eng.generate(batch, new, observer=observer)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = [fa_kernel.flash_attention_fwd.launches,
+                        dec_kernel.decode_attention.launches,
+                        dec_kernel.decode_attention.combine_launches]
+            label = f"{RWKV_ARCH}|{dtype}|{policy}"
+            shape = get_model(cfg).cache_shapes(cfg, SM_BATCH,
+                                                SM_MAX_SEQ)["wkv"]
+            if not one:              # the k dim of every head cut
+                shape = shape[:3] + (shape[3] // sizes["model"], shape[4])
+            if states != {shape}:
+                raise RuntimeError(f"serve_kdim: {label}: WKV states "
+                                   f"{states}, want {shape}")
+            run = sm_run_stats(label, cfg, policy, sizes, launches, [],
+                               steps, wall, new)
+            run["wkv_state"] = list(shape)
+            run["mesh"] = None if one else KD_MESH[0]
+            if rank == 0:
+                keep[label] = (toks, torch.stack(logits), [])
+            out[label] = run
+            del eng
+            torch.cuda.empty_cache()
+        mark(f"serve_kdim_{dtype}")
+    if rank == 0:
+        for dtype in ("bfloat16", "float32"):
+            label = f"{RWKV_ARCH}|{dtype}|mlr"
+            out[label]["vs_one_process"] = sm_compare(
+                label, keep[label], keep[f"{RWKV_ARCH}|{dtype}|one"], dtype,
+                KD_LAYERS)
+    out["marks_s"] = marks
+    return out
 
 
 #: each phase's seconds, in order
@@ -3120,15 +3331,17 @@ def main() -> int:
         return st
 
     def scale_figure(gold):
-        """`paper_fig_scale.main()` at full size on the card (fresh child
-        processes), held against the golden's sizes and prune child, and
-        the early-exit gate's fig_scale section on its record."""
+        """`paper_fig_scale.main()` at FIG_SCALE_SIZES on the card (fresh
+        child processes), held against the golden's sizes and prune
+        child, and the early-exit gate's fig_scale section on its
+        record."""
         from repro_torch.benchmarks import assert_early_exit, paper_fig_scale
         with tempfile.TemporaryDirectory() as tmp:
             bench = os.path.join(tmp, "fig_scale.json")
             os.environ["BENCH_JSON"] = bench
             t0 = time.perf_counter()
-            if paper_fig_scale.main(["--device", "cuda"]) != 0:
+            if paper_fig_scale.main(["--device", "cuda", "--sizes", *(
+                    str(k) for k in FIG_SCALE_SIZES)]) != 0:
                 raise RuntimeError("sweep_scale: paper_fig_scale failed")
             wall = time.perf_counter() - t0
             rec = json.loads(pathlib.Path(bench).read_text())["fig_scale"]
@@ -3211,7 +3424,8 @@ def main() -> int:
         print(json.dumps({"sweep_scale": out}), flush=True)
         return out, (f"journal, resume and record on Fig. 12's "
                      f"{res['cells']} cells equal the golden; fig_scale "
-                     f"at full size equal the golden, best ratio "
+                     f"at {[10 * k for k in FIG_SCALE_SIZES]} cells "
+                     f"equal the golden, best ratio "
                      f"{scale['ratio_best']:.2f}x, prune saved "
                      f"{scale['saved_frac']:.0%} of 2e4 cells' work in "
                      f"{scale['prune_wall_s']:.2f} s; "
@@ -4191,7 +4405,9 @@ def main() -> int:
         st = {"ranks": POD_RANKS, "meshes": [SM_MESH, SM_WIDE_MESH],
               "backend": pod_stats["backend"], "batch": SM_BATCH,
               "prompt": SM_PROMPT,
-              "new": {"bfloat16": SM_NEW, "float32": SM_NEW_F32},
+              "new": {"bfloat16": {str(SM_MESH[0]): SM_NEW_FSDP,
+                                   str(SM_WIDE_MESH[0]): SM_NEW},
+                      "float32": SM_NEW_F32},
               "runs": {a: {"layers": n, "policies": p, "mesh": m[0]}
                        for m, runs in ((SM_MESH, SM_RUNS),
                                        (SM_WIDE_MESH, SM_WIDE_RUNS))
@@ -4226,7 +4442,8 @@ def main() -> int:
             f"{st['backend']} as a {SM_MESH[0]} and a {SM_WIDE_MESH[0]} "
             f"{SM_MESH[1]} mesh (every "
             f"transfer host-staged: loopback and PCIe, not NVLink; {smi}); "
-            f"{SM_BATCH} x {SM_PROMPT} + {SM_NEW} greedy (float32 "
+            f"{SM_BATCH} x {SM_PROMPT} + {SM_NEW_FSDP} greedy on "
+            f"{SM_MESH[0]}, {SM_NEW} on {SM_WIDE_MESH[0]} (float32 "
             f"{SM_NEW_F32}), held against one "
             f"process: " + "; ".join(rows) + f"; launches {launches}; "
             f"{combines} cross-rank combines bit-identical to "
@@ -4235,6 +4452,59 @@ def main() -> int:
             f"pod_sync's time)")
 
     sm_stats = serve_mesh()
+
+    # ------------------------------------------------------------------
+    # the k-cut WKV state: rwkv6-3b over 16 ranks sharing the card
+    # ------------------------------------------------------------------
+    @phase("serve_kdim")
+    def serve_kdim():
+        import torch.multiprocessing as mp
+        torch.cuda.empty_cache()
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            t0 = time.perf_counter()
+            mp.spawn(kdim_rank, args=(KD_RANKS, f"file://{d}/init", d,
+                                      time.time()), nprocs=KD_RANKS)
+            spawn_s = time.perf_counter() - t0
+            ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
+                     for r in range(KD_RANKS)]
+        lead = ranks[0]
+        marks = lead.pop("marks_s")
+        runs = {label: run for label, run in lead.items()
+                if not label.endswith("|one")}
+        st = {"ranks": KD_RANKS, "mesh": KD_MESH, "arch": RWKV_ARCH,
+              "n_layers": KD_LAYERS, "batch": SM_BATCH, "prompt": SM_PROMPT,
+              "new": {"bfloat16": SM_NEW, "float32": SM_NEW_F32},
+              "spawn_wall_s": spawn_s, "rank0_marks_s": marks,
+              "rank0": lead, "card": smi}
+        print(json.dumps({"serve_kdim": st}), flush=True)
+        rows = []
+        for label, run in runs.items():
+            vs = run["vs_one_process"]
+            gap = vs["worst_logit_gap_over_max"]
+            rows.append(
+                f"{label}: {run['wall_s']:.2f} s, "
+                f"{statistics.median(run['step_ms']):.1f} ms/step "
+                f"(median), {run['wire_bytes_per_tok']:.4g} B/tok on the "
+                f"wire, {run['calls_per_step'] / SM_BATCH:.4g} calls/tok "
+                f"({run['calls_per_step']} calls/step, "
+                f"{run['staged_bytes_per_step'] / 1e6:.2f} MB staged per "
+                f"step), state {run['wkv_state']}, "
+                + (f"logits {gap:.2e} of max, "
+                   if isinstance(gap, float) else "")
+                + f"{vs['positions_held']} positions held, "
+                f"{vs['near_tie_token_differences']} near-tie tokens")
+        return st, (
+            f"{RWKV_ARCH} ({KD_LAYERS} layers, full width) on a "
+            f"{KD_MESH[0]} {KD_MESH[1]} mesh of {KD_RANKS} ranks sharing "
+            f"one card over gloo (host-staged: not NVLink; {smi}), MLR, "
+            f"the WKV state cut over its k dim; {SM_BATCH} x {SM_PROMPT} "
+            f"+ {SM_NEW} greedy (float32 {SM_NEW_F32}), held against one "
+            f"process: " + "; ".join(rows) + f"; spawn {spawn_s:.1f} s, "
+            f"rank 0's parts ended at (s since the spawn) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()))
+
+    serve_kdim()
 
     @phase("kernels")
     def kernels():

@@ -3,7 +3,7 @@ streaming pipeline vs the synchronous runner, plus the successive-halving
 work saving on a 2e4-cell grid (port of ``benchmarks/paper_fig_scale.py``).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.paper_fig_scale \
-        [--smoke] [--device cuda|cpu]
+        [--smoke] [--device cuda|cpu] [--sizes K ...]
 
 Methodology — every measurement is a **fresh subprocess** timed around
 `run_sweep` only (imports, grid construction and, on a card, the CUDA
@@ -198,13 +198,16 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="tiny sizes for CI (sets SMLA_SMOKE=1)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--sizes", type=int, nargs="+", default=None,
+                    help="the sizes to run, as workload counts (default: "
+                         f"{SIZES_FULL}; with --smoke {SIZES_SMOKE})")
     args = ap.parse_args(argv)
     if args.smoke:
         os.environ["SMLA_SMOKE"] = "1"
 
     n_req = scaled(120, 24)
     horizon = scaled(6_000, 2_000)
-    sizes = SIZES_SMOKE if smoke_mode() else SIZES_FULL
+    sizes = args.sizes or (SIZES_SMOKE if smoke_mode() else SIZES_FULL)
     rows = []
     with tempfile.TemporaryDirectory(prefix="fig-scale-") as cache_root:
         for k in sizes:

@@ -85,10 +85,14 @@ def decode_comm(cfg, sizes: dict, batch: int, policy: str, *,
     partials (B, Hkv, S, G, 2 + hd) over the cache's sequence axes, S
     the decode's `splits` per rank (1 for the plain path and for
     whisper's cross cache).  RWKV-6: the receptance's gather over
-    'model'.  Mamba2: the gathers of the packed projection and of the
+    'model'; where the WKV state is cut over its k dim, the fused gather
+    of r, k and v over 'model' and the float32 (B, 1, d) sum of the
+    partial y.  Mamba2: the gathers of the packed projection and of the
     conv's channels over 'model', the gated norm's float32 (B, 1, 1)
-    sum.  The MoE FFN: the gather of the activations onto the expert
-    block (SLR) and its float32 sum over 'model'.  The head's FSDP
+    sum; where the SSM state is cut over P, the gather of the normed
+    channels (B, 1, d_in / M) over 'model' that relays them into
+    ``w_out``'s rows.  The MoE FFN: the gather of the activations onto
+    the expert block (SLR) and its float32 sum over 'model'.  The head's FSDP
     gather and a gather of the logits over 'model', or the tied head's
     gather of hidden rows and its float32 sums over the feature axes."""
     from repro_torch.configs.base import _param_shapes
@@ -190,6 +194,11 @@ def decode_comm(cfg, sizes: dict, batch: int, policy: str, *,
     else:
         fsdp("layers.")
     if cfg.family == "ssm":
+        h = cfg.ssm.n_ssm_heads
+        if cut("layers.tmix.w_r", -1) and h % m:    # the k-cut state
+            gather(b_l * 3 * d // m * act, ("model",))  # r, k, v whole
+            if (d // h) % m == 0:
+                reduce(b_l * d * 4, ("model",))         # the partial y
         if cut("layers.tmix.w_o", -2):
             reduce(b_l * d * 4, ("model",))
         if cut("layers.cmix.w_v", -2):
@@ -205,7 +214,11 @@ def decode_comm(cfg, sizes: dict, batch: int, policy: str, *,
         if cut("layers.mamba.conv", -1):
             gather(b_l * ch // m * act, ("model",))
         if cut("layers.mamba.w_out", -2):
-            reduce(b_l * 4, ("model",))                 # the gated norm
+            h, p_head = ssm.n_ssm_heads, 2 * d // ssm.n_ssm_heads
+            if h % m == 0 or p_head % m == 0:
+                reduce(b_l * 4, ("model",))             # the gated norm
+            if h % m and p_head % m == 0:               # the P-cut state
+                gather(b_l * 2 * d // m * act, ("model",))  # y relaid
             reduce(b_l * d * 4, ("model",))
     elif cfg.family in ("dense", "vlm", "moe"):
         attention("layers.attn", seq("k"), splits)
@@ -255,12 +268,15 @@ class Shape:
     policies: tuple = ("mlr", "slr")
 
 
-def host_params(cfg, device) -> dict:
+def host_params(cfg, device, block=None) -> dict:
     """Seed-0 params of `cfg` drawn on `device` one leaf at a time (the
     draws of ``models.common.init_from_shapes``, which takes the leaves in
     sorted order from one generator) and kept on the host in the dtype the
     engine casts them to (`common.cast_weights`): a published-size model
-    whose float32 tree would not fit beside its shards on the card."""
+    whose float32 tree would not fit beside its shards on the card.
+    `block`, where given, maps (path, leaf) to the part of the leaf to
+    keep (a rank's block, ``partitioning.local_shard``; for an engine
+    built with ``local=True``)."""
     from repro_torch.configs.base import _param_shapes
     from repro_torch.models import common as cm
     gen = torch.Generator(device=device).manual_seed(0)
@@ -268,6 +284,8 @@ def host_params(cfg, device) -> dict:
     for path, shape in sorted(_param_shapes(cfg).items()):
         leaf = cm.flatten_paths(cm.init_from_shapes(gen, {path: shape},
                                                     device))[path]
+        if block is not None:
+            leaf = block(path, leaf)
         keep = cm._is_norm(path) or path.split(".")[-1] in \
             cm._FLOAT32_LEAVES
         flat[path] = (leaf if keep else cm.cast(leaf, cfg)).cpu()

@@ -10,8 +10,8 @@ Every family module exposes the same functional API:
   cache_specs(cfg, pcfg, long_ctx, model_size) -> {cache leaf: spec}
 plus transformer.logits_fn for the LM head.  Every family also runs on
 a mesh (``mesh=``, a ``common.MeshContext``): its prefill, decode,
-init_cache and logits_fn take it; ``cache_specs`` raises for the layouts
-that have no sharded path yet (`check_mesh`).  Every family of the
+init_cache and logits_fn take it, with every cache layout of the
+reference's ``cache_specs`` (`check_mesh`).  Every family of the
 reference is ported: the transformer's three (dense, VLM with M-RoPE,
 MoE), RWKV6 (ssm), Zamba2 (hybrid: Mamba2 + a shared attention block)
 and Whisper (encdec).
@@ -38,11 +38,10 @@ _FAMILY = {
 
 def check_mesh(cfg: ModelConfig, mesh) -> bool:
     """True where `mesh` has an axis of size > 1 (a sharded run).  Every
-    family runs sharded; the layouts with no sharded path yet (the
-    reference's k-dim state layouts, where the SSM heads do not divide
-    'model') raise in the family's ``cache_specs``
-    (``transformer.MESH_TODO``), so such a run never goes on
-    replicated."""
+    family runs sharded, in every layout of its ``cache_specs``: the KV
+    heads or the sequence over 'model', and the SSM states' heads or
+    their k (RWKV-6) or P (Mamba2) dim where the heads do not divide
+    'model'."""
     from repro_torch.core.comm import axis_sizes
     if mesh is None:
         return False

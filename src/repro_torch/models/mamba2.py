@@ -108,14 +108,21 @@ def mamba_block(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     On a mesh (``mesh=``, a ``common.MeshContext``) `p` holds this rank's
     blocks under the reference's rules: ``w_in``'s packed [z | x | B | C
     | dt] columns and ``conv``'s [x | B | C] channels cut contiguously
-    over 'model' (a block straddles the segments), ``w_out``'s rows (its
-    heads' d_in columns); `conv_state` holds its channels and `ssm_state`
-    its heads.  The rank gathers its projection columns over 'model',
-    convolves its channels from its conv state, gathers the conv's
-    output, and runs the scan on its heads with their x, dt and z and the
-    B and C of their groups; the gated norm's sum of squares over d_in is
-    one float32 sum over 'model', and ``w_out`` a row-parallel product
-    summed over 'model'.
+    over 'model' where they divide (a block straddles the segments),
+    ``w_out``'s rows (a contiguous block of d_in); `conv_state` holds its
+    channels.  The rank gathers its projection columns over 'model',
+    convolves its channels from its conv state and gathers the conv's
+    output.  Then the reference's two layouts of the SSM state: where
+    the heads divide 'model', `ssm_state` holds the rank's heads, which
+    are ``w_out``'s rows, and it runs the scan on them with their x, dt
+    and z and the B and C of their groups; where they do not, `ssm_state`
+    holds P/M channels of every head (every channel where P does not
+    divide 'model'), and it runs the scan on those channels of x and z
+    with every head's B, C and dt (they are shared over P).  The gated
+    norm's sum of squares over d_in is one float32 sum over 'model'; in
+    the P-cut the normed channels are then gathered over 'model' and
+    relaid into ``w_out``'s row block; ``w_out`` is a row-parallel
+    product summed over 'model'.
     """
     b, s, d = x.shape
     ssm = cfg.ssm
@@ -148,32 +155,50 @@ def mamba_block(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
                          h_heads)
 
     dt_bias, a_log, d_skip, norm = p["dt_bias"], p["A_log"], p["D"], p["norm"]
-    hl = p["w_out"].shape[0] // p_head
-    if hl != h_heads:                            # this rank's heads
+    rows = p["w_out"].shape[0]
+    hl, pw = h_heads, p_head                     # heads and channels here
+    if rows != d_in and rows % p_head == 0:      # this rank's heads
+        hl = rows // p_head
         i, _ = mesh.block(model)
         hs, cs = slice(i * hl, (i + 1) * hl), slice(i * hl * p_head,
                                                    (i + 1) * hl * p_head)
         x_in, bm, cmx = x_in[:, :, hs], bm[:, :, hs], cmx[:, :, hs]
         dt_raw, z, norm = dt_raw[..., hs], z[..., cs], norm[cs]
         dt_bias, a_log, d_skip = dt_bias[hs], a_log[hs], d_skip[hs]
+    elif rows != d_in and p_head % mesh.size(model) == 0:   # P/M channels
+        pw = p_head // mesh.size(model)
+        i, _ = mesh.block(model)
+        ps = slice(i * pw, (i + 1) * pw)
+        x_in = x_in[..., ps]
+        z = z.reshape(b, s, h_heads, p_head)[..., ps].reshape(b, s, -1)
+        norm = norm.reshape(h_heads, p_head)[:, ps].reshape(-1)
 
     dt = F.softplus(dt_raw.float() + dt_bias.float())
     a = -torch.exp(a_log.float())                      # (H,) < 0
     la = dt * a                                        # log decay <= 0
 
     if ssm_state is None:
-        ssm_state = torch.zeros((b, hl, p_head, n), dtype=torch.float32,
+        ssm_state = torch.zeros((b, hl, pw, n), dtype=torch.float32,
                                 device=x.device)
     ssd = ssd_chunked if chunked else ssd_sequential
     ssm_state, y = ssd(x_in.float(), dt, la, bm.float(), cmx.float(),
                        ssm_state)
     y = y + d_skip.float()[None, None, :, None] * x_in.float()
-    y = y.reshape(b, s, hl * p_head) * F.silu(z.float())
-    if hl != h_heads:    # the gated norm over d_in: its sum over 'model'
+    y = y.reshape(b, s, hl * pw) * F.silu(z.float())
+    if hl * pw != d_in:  # the gated norm over d_in: its sum over 'model'
         var = mesh.sum(y.square().sum(-1, keepdim=True), model) / d_in
         y = y * torch.rsqrt(var + cfg.norm_eps) * norm.float()
-        return (cm.row_parallel(y.to(x.dtype), cm.cast(p["w_out"], cfg), mesh),
+    else:
+        y = cm.rms_norm(y, norm, cfg.norm_eps)
+    if rows == d_in:
+        return (cm.matmul(y.to(x.dtype), cm.cast(p["w_out"], cfg)),
                 conv_state, ssm_state)
-    y = cm.rms_norm(y, norm, cfg.norm_eps)
-    out = cm.matmul(y.to(x.dtype), cm.cast(p["w_out"], cfg))
-    return out, conv_state, ssm_state
+    y = y.to(x.dtype)
+    if hl == h_heads:    # every head: relaid into w_out's row block
+        if pw != p_head:
+            y = mesh.gather(y.reshape(b, s, h_heads, pw), -1,
+                            model).reshape(b, s, d_in)
+        i, _ = mesh.block(model)
+        y = y[..., i * rows:(i + 1) * rows]
+    return (cm.row_parallel(y, cm.cast(p["w_out"], cfg), mesh), conv_state,
+            ssm_state)

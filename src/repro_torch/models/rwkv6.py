@@ -1,7 +1,8 @@
 """RWKV6 ("Finch") — attention-free LM with data-dependent per-channel
 decay, the ``ssm`` family (port of ``repro/models/rwkv6.py``).
 
-Time-mix recurrence per head (k/v dims = head_dim):
+Time-mix recurrence per head (k/v dims = head_dim; the plain paths also
+take k rows narrower than v, a rank's share of the k-cut state):
 
     S_t = diag(w_t) S_{t-1} + k_t v_t^T          (w_t = exp(-exp(lora(x_t))))
     y_t = r_t · (S_{t-1} + diag(u ⊙ k_t) 1 v_t^T)  ==  r·S + (r·(u⊙k)) v
@@ -31,11 +32,18 @@ counterpart of ``jax.checkpoint(..., nothing_saveable)``.  Serving
 fresh tensors (the caller's is not changed); ``cache["pos"]`` is a
 Python int.
 
-On a mesh (``mesh=``, a ``common.MeshContext``) serving runs on each
-rank's heads where they divide 'model' (`cache_specs`): the time mix's
-projections column-parallel and ``w_o`` row-parallel, the channel mix's
-FFN block column- then row-parallel and its receptance gathered over
-'model', each row-parallel product summed over 'model' in float32.
+On a mesh (``mesh=``, a ``common.MeshContext``) serving takes the
+reference's two layouts of the WKV state (`cache_specs`).  Where the
+heads divide 'model', each rank runs its heads: the time mix's
+projections column-parallel and ``w_o`` row-parallel.  Where they do
+not, the state is cut over its k dim: a rank's column blocks of r, k, v
+and g straddle heads, so it gathers r, k and v whole over 'model' (one
+fused gather), runs the WKV on its k rows of every head (each row of a
+head's state evolves alone, and y is a sum over k), sums its partial y
+over 'model' in float32, norms every head, and gates its column block
+into the row-parallel ``w_o``.  Either way the channel mix's FFN block
+is column- then row-parallel and its receptance gathered over 'model',
+each row-parallel product summed over 'model' in float32.
 
 Simplifications vs. the published model (as in the reference): static
 token-shift interpolation weights (RWKV5-style mu) instead of the dynamic
@@ -50,7 +58,6 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
-from repro_torch.models.transformer import MESH_TODO
 from repro_torch.models.transformer import _layer as _layer_params
 from repro_torch.models.transformer import (cache_block, embed_tokens,
                                             logits_fn)
@@ -89,8 +96,10 @@ def _einsum(eq, *operands):
 
 
 def wkv_sequential(r, k, v, logw, u, state):
-    """r/k/v/logw (B,S,H,hd); u (H,hd); state (B,H,hd,hd) [k-dim, v-dim].
-    Returns (state', y (B,S,H,hd)), in JAX's promoted dtypes (the
+    """r/k/logw (B,S,H,dk); v (B,S,H,dv); u (H,dk); state (B,H,dk,dv)
+    [k-dim, v-dim] (dk = dv = hd for whole heads; dk a share of hd for a
+    rank's k rows, whose y is then that share's term of the sum over k).
+    Returns (state', y (B,S,H,dv)), in JAX's promoted dtypes (the
     chunked path's fall-back passes bf16 r, k, v)."""
     ys = []
     for t in range(r.shape[1]):
@@ -104,8 +113,10 @@ def wkv_sequential(r, k, v, logw, u, state):
 
 
 def _chunk_body(st, rc, kc, vc, wc, u):
-    """One chunk: (state', y (B,c,H,hd) float32) from the state before
-    it; inputs (B,c,H,hd)."""
+    """One chunk: (state', y (B,c,H,dv) float32) from the state before
+    it (B,H,dk,dv); rc, kc, wc (B,c,H,dk), vc (B,c,H,dv), u (H,dk).  In
+    the einsums ``k`` names the k dim and ``v`` the v dim; ``d`` names
+    the k dim, but the v dim in y's product with vc."""
     rc, kc, vc, wc = (a.float() for a in (rc, kc, vc, wc))
     c = rc.shape[1]
     scum = torch.cumsum(wc, dim=1)                 # inclusive (B,c,H,hd)
@@ -132,17 +143,20 @@ def _chunk_body(st, rc, kc, vc, wc, u):
 
 
 def wkv_chunked(r, k, v, logw, u, state, chunk: int = XLA_CHUNK, *,
-                remat_chunks: bool = False):
+                remat_chunks: bool = False, combine=None):
     """Chunked evaluation; exact (up to fp) match with wkv_sequential,
-    to which it falls back when S is not a multiple of the chunk.  Returns
-    (state' float32, y (B,S,H,hd) in r's dtype).  `remat_chunks`
-    recomputes each chunk in the backward (``torch.utils.checkpoint``)
-    instead of keeping its decay tensors: the same values, the memory of
-    one chunk."""
-    b, s, h, hd = r.shape
+    to which it falls back when S is not a multiple of the chunk.  Shapes
+    as `wkv_sequential`'s.  Returns (state' float32, y (B,S,H,dv) in r's
+    dtype; the fall-back's promoted dtype).  `remat_chunks` recomputes
+    each chunk in the backward (``torch.utils.checkpoint``) instead of
+    keeping its decay tensors: the same values, the memory of one chunk.
+    `combine`, where given, maps the float32 y before that rounding (a
+    rank's share of the sum over k: its sum over 'model')."""
+    s = r.shape[1]
     c = min(chunk, s)
     if s % c != 0:
-        return wkv_sequential(r, k, v, logw, u, state)
+        state, y = wkv_sequential(r, k, v, logw, u, state)
+        return state, y if combine is None else combine(y)
     st = state.float()
     ys = []
     for i in range(s // c):
@@ -154,7 +168,8 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int = XLA_CHUNK, *,
         else:
             st, y = _chunk_body(*args)
         ys.append(y)
-    return st, torch.cat(ys, dim=1).to(r.dtype)
+    y = torch.cat(ys, dim=1)
+    return st, (y if combine is None else combine(y)).to(r.dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -169,11 +184,15 @@ def _shift(x, x_prev):
 
 def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
              state, *, sequential: bool, fresh: bool = False, mesh=None):
-    """On a mesh, `p` holds this rank's blocks: ``w_{r,k,v,g}`` its heads'
-    columns, ``w_o`` their rows; the decay lora's product is whole
-    (``w_decay``, ``w_decay2`` gathered over 'data') and the rank takes
-    its heads' columns of it, of ``bonus`` and of ``ln_x``; `state` holds
-    its heads."""
+    """On a mesh, `p` holds this rank's blocks: ``w_{r,k,v,g}`` a column
+    block, ``w_o`` its rows; the decay lora's product is whole
+    (``w_decay``, ``w_decay2`` gathered over 'data').  Where the block
+    is whole heads the rank takes their columns of the decay, ``bonus``
+    and ``ln_x``, and `state` holds those heads.  Where it straddles
+    heads (the heads do not divide 'model'), `state` holds the rank's k
+    rows of every head (all of them where hd does not divide 'model'):
+    r, k and v are gathered over 'model', the WKV runs on those rows,
+    and its partial y is summed over 'model' (`_k_rows`)."""
     b, s, d = x.shape
     h = cfg.ssm.n_ssm_heads
     hd = d // h
@@ -187,18 +206,25 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
     lora = torch.tanh(cm.matmul(xw, cm.cast(p["w_decay"], cfg)))
     dec = cm.matmul(lora, cm.cast(p["w_decay2"], cfg))
     u, ln_x = p["bonus"], p["ln_x"].reshape(h, hd)  # (H, hd)
-    if r.shape[-1] != d:                           # this rank's heads
-        h = r.shape[-1] // hd
+    cw = r.shape[-1]                               # this rank's columns
+    if cw != d and cw % hd == 0:                   # this rank's heads
+        h = cw // hd
         i, _ = mesh.block(("model",))
         dec = dec[..., i * h * hd:(i + 1) * h * hd]
         u, ln_x = u[i * h:(i + 1) * h], ln_x[i * h:(i + 1) * h]
     logw = -torch.exp(dec.float() - 2.0)           # w in (0,1); slow init
-
-    r4, k4, v4, w4 = (a.reshape(b, s, h, hd) for a in (r, k, v, logw))
+    if cw != d and cw % hd:                        # columns straddle heads
+        r4, k4, v4, w4, u, combine = _k_rows(r, k, v, logw, u,
+                                             state.shape[-2], h, hd, mesh)
+    else:
+        r4, k4, v4, w4 = (a.reshape(b, s, h, hd) for a in (r, k, v, logw))
+        combine = None
     chunk = min(cfg.ssm.chunk, 64)
     if sequential:
         state, y = wkv_sequential(r4.float(), k4.float(), v4.float(), w4, u,
                                   state)
+        if combine is not None:
+            y = combine(y)
     elif pcfg.attn_impl == "pallas" and fresh and s % chunk == 0:
         # the WKV6 kernel (zero initial state = fresh sequence)
         from repro_torch.kernels.wkv6 import ops as wkv_ops
@@ -207,11 +233,40 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
         # the state is not needed on the train path
     else:
         state, y = wkv_chunked(r4, k4, v4, w4, u, state,
-                               chunk=min(cfg.ssm.chunk, XLA_CHUNK))
+                               chunk=min(cfg.ssm.chunk, XLA_CHUNK),
+                               combine=combine)
     # per-head norm (ln_x), flatten, gate, project out
-    yn = cm.rms_norm(y.float(), ln_x, cfg.norm_eps)
-    out = yn.reshape(b, s, h * hd).to(x.dtype) * g
+    yn = cm.rms_norm(y.float(), ln_x, cfg.norm_eps).reshape(b, s, h * hd)
+    if h * hd != cw:                               # this rank's columns
+        i, _ = mesh.block(("model",))
+        yn = yn[..., i * cw:(i + 1) * cw]
+    out = yn.to(x.dtype) * g
     return _out_proj(out, p["w_o"], d, cfg, mesh), x[:, -1].float(), state
+
+
+def _k_rows(r, k, v, logw, u, kw: int, h: int, hd: int, mesh):
+    """The k-cut WKV state's inputs on one rank (serving): r, k, v
+    (B,S,cw) column blocks that straddle heads, gathered whole over
+    'model' in one fused gather; the rank's `kw` k rows of every head of
+    r, k, the whole log-decay `logw` (B,S,d) and `u` (H,hd) (the rows
+    its state holds; all of them where `kw` is hd); v whole.  Returns
+    (r, k, v, logw, u, combine): the first four (B,S,H,.), and the sum
+    over 'model' of the rank's float32 partial y (each row of a head's
+    state evolves alone and y is a sum over k, so the sum is y, rounded
+    after it as the whole call rounds it)."""
+    b, s, cw = r.shape
+    model = ("model",)
+    m = mesh.size(model)
+    rkv = mesh.gather(torch.cat([r, k, v], dim=-1), -1, model)
+    r, k, v = rkv.reshape(b, s, m, 3, cw).unbind(3)
+    i = mesh.block(model)[0] if kw < hd else 0
+    rows = slice(i * kw, (i + 1) * kw)
+    r4, k4, w4 = (a.reshape(b, s, h, hd)[..., rows] for a in (r, k, logw))
+
+    def combine(y):
+        return mesh.sum(y, model) if kw < hd else y
+
+    return r4, k4, v.reshape(b, s, h, hd), w4, u[:, rows], combine
 
 
 def _out_proj(x, w, rows: int, cfg, mesh):
@@ -301,7 +356,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                pcfg: ParallelConfig, device="cuda", mesh=None):
     """Zero float32 states (L, ...) for every layer, position 0; on a
     mesh, this rank's block under ``mesh.cache_specs`` (its requests, and
-    its heads of the WKV state)."""
+    its heads, or k rows, of the WKV state)."""
     _check_family(cfg)
     dev = cm.check_device(device)
     shapes = cache_shapes(cfg, batch, max_seq)
@@ -358,17 +413,12 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig,
 
 def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
     """The reference's specs of the cache's leaves: the WKV state's heads
-    over 'model', the token-shift states whole over it, the batch over
-    ('pod', 'data').  Where the heads do not divide 'model' the
-    reference cuts the state's k dim instead, which has no sharded path
-    here yet: it raises (`transformer.MESH_TODO`)."""
-    h = cfg.ssm.n_ssm_heads
-    if h % model_size:
-        raise NotImplementedError(
-            f"{cfg.name}: {h} RWKV heads do not divide 'model' = "
-            f"{model_size}; the WKV state cut over its k dim (the "
-            f"reference's layout) waits for {MESH_TODO}")
+    over 'model', or its k dim where the heads do not divide 'model'
+    (`time_mix`); the token-shift states whole over it, the batch over
+    ('pod', 'data')."""
     dp = cm.dp_axes()
-    return {"wkv": (None, dp, "model", None, None),
-            "tmix_x": (None, dp, None), "cmix_x": (None, dp, None),
+    wkv = ((None, dp, "model", None, None)
+           if cfg.ssm.n_ssm_heads % model_size == 0
+           else (None, dp, None, "model", None))
+    return {"wkv": wkv, "tmix_x": (None, dp, None), "cmix_x": (None, dp, None),
             "pos": (), "lengths": (dp,)}

@@ -338,10 +338,6 @@ def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
 # ----------------------------------------------------------------------------
 
 
-#: the ROADMAP item that the sharded layouts this package refuses wait for
-MESH_TODO = "ROADMAP queue 1, item 1 (Slice F3d: the k-dim state layouts)"
-
-
 def kv_cache_spec(cfg: ModelConfig, long_ctx: bool, model_size: int) -> tuple:
     """The reference's spec of a (L, B, S, Hkv, hd) KV cache: KV heads over
     'model' where they divide; else the sequence over 'model' (the

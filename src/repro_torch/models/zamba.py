@@ -31,9 +31,11 @@ at every site, so autograd sums their gradients over the sites.  Serving
 (prefill, decode) has no backward and no remat.
 
 On a mesh (``mesh=``, a ``common.MeshContext``; serving only) every
-rank runs `mamba2.mamba_block`'s sharded path on its SSM heads and the
-shared block through `attention_block` and `mlp_block` with the mesh;
-the cache is cut by `cache_specs`.
+rank runs `mamba2.mamba_block`'s sharded path, on its SSM heads where
+they divide 'model' and on P/M channels of every head where they do
+not (the reference's two layouts of the SSM state), and the shared
+block through `attention_block` and `mlp_block` with the mesh; the
+cache is cut by `cache_specs`.
 
 Simplification vs. the published model (as in the reference): the shared
 block consumes the hidden state directly rather than concat(hidden,
@@ -49,10 +51,10 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2
-from repro_torch.models.transformer import (MESH_TODO, _layer,
-                                            attention_block, cache_block,
-                                            embed_tokens, kv_cache_spec,
-                                            logits_fn, mlp_block, seq_axes)
+from repro_torch.models.transformer import (_layer, attention_block,
+                                            cache_block, embed_tokens,
+                                            kv_cache_spec, logits_fn,
+                                            mlp_block, seq_axes)
 
 
 def init(gen, cfg: ModelConfig, device="cuda"):
@@ -206,21 +208,15 @@ def decode(params, tokens, cache, cfg: ModelConfig, pcfg: ParallelConfig,
 
 def cache_specs(cfg, pcfg, long_ctx: bool, model_size: int = 16):
     """The reference's specs of the cache's leaves: the conv state's
-    channels and the SSM state's heads over 'model', the KV slabs as the
-    transformer's (`transformer.kv_cache_spec`: KV heads, else the
-    sequence, over 'model'; the sequence over ('data', 'model') for
-    long-context decode), the batch over ('pod', 'data').  Where the SSM
-    heads do not divide 'model' the reference cuts the state's P dim
-    instead, which has no sharded path here yet: it raises
-    (`transformer.MESH_TODO`)."""
-    h = cfg.ssm.n_ssm_heads
-    if h % model_size:
-        raise NotImplementedError(
-            f"{cfg.name}: {h} SSM heads do not divide 'model' = "
-            f"{model_size}; the SSM state cut over its P dim (the "
-            f"reference's layout) waits for {MESH_TODO}")
+    channels over 'model'; the SSM state's heads over it, or its P dim
+    where the heads do not divide 'model' (`mamba2.mamba_block`); the KV
+    slabs as the transformer's (`transformer.kv_cache_spec`: KV heads,
+    else the sequence, over 'model'; the sequence over ('data', 'model')
+    for long-context decode), the batch over ('pod', 'data')."""
     dp = cm.dp_axes()
     kv = kv_cache_spec(cfg, long_ctx, model_size)
-    return {"conv": (None, dp, None, "model"),
-            "ssm": (None, dp, "model", None, None),
+    ssm = ((None, dp, "model", None, None)
+           if cfg.ssm.n_ssm_heads % model_size == 0
+           else (None, dp, None, "model", None))
+    return {"conv": (None, dp, None, "model"), "ssm": ssm,
             "k": kv, "v": kv, "pos": (), "lengths": (dp,)}

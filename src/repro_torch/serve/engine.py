@@ -26,8 +26,10 @@ whole batch's tokens on every rank.  The reference places only the
 params and leaves the batch and cache to GSPMD; the values are the same,
 the communication schedule is the port's own.  Every family serves on a
 mesh, with the cache layouts of its ``cache_specs`` (KV heads over
-'model', or the sequence where they do not divide); the reference's
-k-dim state layouts raise there.  Without a mesh both policies are the
+'model', or the sequence where they do not divide; the SSM states'
+heads, or their k or P dim where the heads do not divide).  A rank may
+be given its own blocks alone (``local=True``), where every rank holding
+the whole tree would not fit.  Without a mesh both policies are the
 one-device path.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
@@ -105,6 +107,18 @@ def make_serve_fns(cfg: ModelConfig, pcfg: ParallelConfig, scfg: ServeConfig,
                                                          mesh)}
 
 
+def _check_blocks(params, specs, cfg: ModelConfig, mesh) -> None:
+    """Raises unless every leaf of `params` has the shape of this rank's
+    block of `cfg`'s leaf under `specs` (``Engine(..., local=True)``)."""
+    flat, flat_specs = cm.flatten_paths(params), cm.flatten_paths(specs)
+    for path, shape in _param_shapes(cfg).items():
+        want = part.local_shape(shape, flat_specs[path], mesh)
+        got = tuple(flat[path].shape) if path in flat else None
+        if got != want:
+            raise ValueError(f"Engine(local=True): {path} is {got}, this "
+                             f"rank's block is {want}")
+
+
 class Engine:
     """Minimal batched-request engine: aligned prefill + stepwise decode.
 
@@ -113,11 +127,15 @@ class Engine:
     reference.  The params (the whole tree, on every rank) are cut to this
     rank's shards under the policy's specs where there is a mesh, cast to
     the compute dtype once, here (`common.cast_weights`: the same numbers
-    the reference's cast at use gives), and moved to `device`.
+    the reference's cast at use gives), and moved to `device`.  With
+    ``local=True`` `params` is this rank's blocks under the policy's
+    specs already (``partitioning.shard_tree`` of the whole tree), used
+    as they are.
     """
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig,
-                 scfg: ServeConfig, params, mesh=None, device="cuda"):
+                 scfg: ServeConfig, params, mesh=None, device="cuda",
+                 local: bool = False):
         self.cfg, self.pcfg, self.scfg = cfg, pcfg, scfg
         self.device = cm.check_device(device)
         self.model = get_model(cfg)
@@ -136,10 +154,13 @@ class Engine:
             self._cache_specs = cspecs
             self.ctx = cm.MeshContext(mesh, specs["params"],
                                       batch_dp_axes(scfg.policy))
-            # copies: the caller's whole tree is not held by the shards
-            params = cm.map_tree(
-                lambda t: t.clone(memory_format=torch.contiguous_format),
-                part.shard_tree(params, specs["params"], mesh))
+            if local:
+                _check_blocks(params, specs["params"], cfg, mesh)
+            else:
+                # copies: the caller's whole tree is not held by the shards
+                params = cm.map_tree(
+                    lambda t: t.clone(memory_format=torch.contiguous_format),
+                    part.shard_tree(params, specs["params"], mesh))
         self.params = cm.cast_weights(params, cfg, self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(0)
 

@@ -314,11 +314,12 @@ def test_mesh_refused_for_unported_families(arch):
     """Every family passes `check_mesh` on a mesh with 'data' and 'model'
     > 1 (the rwkv, hybrid and encdec families serve sharded since F3c;
     ``tests/test_torch_serve_mesh_families.py`` holds them to the
-    reference); what is refused is the layouts with no sharded path yet,
-    the reference's k-dim state layouts where the SSM heads do not
-    divide 'model': the family's cache_specs and the engine raise with
-    the ROADMAP item's name, never run replicated.  Whisper has no such
-    layout."""
+    reference), and since F3d nothing is refused: where the reduced 2
+    SSM heads do not divide 'model' = 4, the family's cache_specs give
+    the reference's k-dim state layout (RWKV-6's WKV state over its k
+    dim, Mamba2's SSM state over P) and the engine builds under MLR on
+    a (1, 4) mesh (a fake process group).  Whisper has no such layout.
+    The name is kept for the record."""
     cfg = reduce_config(get_config(arch))
     mesh = MeshShape(("data", "model"), (2, 2))
     assert check_mesh(cfg, mesh) is True
@@ -329,12 +330,14 @@ def test_mesh_refused_for_unported_families(arch):
         == (("pod", "data"),)
     if cfg.family == "encdec":
         return
-    wide = MeshShape(("data", "model"), (1, 4))     # 2 SSM heads over 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
-        model.cache_specs(cfg, ParallelConfig(), False, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
-        Engine(cfg, ParallelConfig(), ServeConfig(), {}, mesh=wide,
-               device="cpu")
+    rcfg = ref_reduce(ref_get_config(arch))
+    want = ref_models.get_model(rcfg).cache_specs(rcfg, RefPCfg(), False, 4)
+    assert model.cache_specs(cfg, ParallelConfig(), False, 4) == \
+        {k: tuple(v) for k, v in want.items()}
+    with torch_dist.fake_mesh((1, 4), rank=2) as wide:
+        eng = Engine(cfg, ParallelConfig(), ServeConfig(), model.init(
+            0, cfg, device="cpu"), mesh=wide, device="cpu")
+    assert eng.ctx.coords == {"data": 0, "model": 2}
 
 
 def test_heads_that_do_not_divide_and_long_ctx_raise():

@@ -3,7 +3,10 @@
 SLR on a (2, 2) mesh, transformers whose q or KV heads do not divide
 'model' on a (1, 4) one (the sequence-sharded KV cache: each rank's
 partial softmax state over its block of positions, merged across
-ranks), and the long-context layout (the sequence over ('data',
+ranks), RWKV-6 and Zamba2 whose SSM heads do not divide 'model' on a
+(1, 4) one (the WKV state cut over its k dim, the SSM state over P:
+the reduced 2 heads, and 6 heads at d 96 whose blocks straddle heads),
+and the long-context layout (the sequence over ('data',
 'model') at batch 1) through the models' own prefill and decode, all
 against the reference's unsharded calls.
 
@@ -209,45 +212,53 @@ FAMILY_ARCHS = ("tinyllama-1.1b", "qwen2-vl-72b", "granite-moe-3b-a800m",
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_cache_specs_equal_reference(arch, size, long_ctx):
     """Each family's cache_specs at its published size equal the
-    reference's for 'model' = `size`, wherever the port serves that
-    layout; where it does not (rwkv6-3b's 40 heads over 16: the WKV
-    state cut over its k dim), it raises naming the ROADMAP item."""
+    reference's for 'model' = `size`: every layout, rwkv6-3b's 40 heads
+    over 16 (the WKV state cut over its k dim) included."""
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import get_model
     cfg = get_config(arch)
     rcfg = ref_get_config(arch)
     want = ref_models.get_model(rcfg).cache_specs(rcfg, RefPCfg(), long_ctx,
                                                   size)
-    model = get_model(cfg)
-    if cfg.family == "ssm" and cfg.ssm.n_ssm_heads % size:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
-            model.cache_specs(cfg, ParallelConfig(), long_ctx, size)
-        return
-    got = model.cache_specs(cfg, ParallelConfig(), long_ctx, size)
+    got = get_model(cfg).cache_specs(cfg, ParallelConfig(), long_ctx, size)
     assert got == {k: tuple(v) for k, v in want.items()}
 
 
 @pytest.mark.parametrize("arch,heads", [("rwkv6-3b", 6), ("zamba2-7b", 6)])
 @pytest.mark.parametrize("size", [4, 16])
 def test_k_dim_state_layouts_raise(arch, heads, size):
-    """SSM heads that do not divide 'model' (the reference cuts the
-    state's k or P dim instead) raise in cache_specs with the ROADMAP
-    item's name, and the engine refuses such a mesh under MLR before it
-    places anything; under SLR ('model' replicates the params) the same
-    mesh serves."""
+    """SSM heads that do not divide 'model' (6 at d 96): cache_specs give
+    the reference's layout, the WKV state cut over its k dim or the SSM
+    state over P, and ``Engine`` builds under MLR on a (1, `size`) mesh
+    (rank 1 of a fake process group: no collective runs), its blocks of
+    the params and of the cache cut as those specs say.  The name is
+    kept for the record: until Slice F3d these layouts raised."""
     from repro_torch.configs import ParallelConfig
-    from repro_torch.core.comm import MeshShape
     from repro_torch.models import get_model
-    from repro_torch.models.transformer import MESH_TODO
     from repro_torch.serve.engine import Engine, ServeConfig
-    cfg = _port_cfg(arch, {"n_ssm_heads": heads})
-    assert "F3d" in MESH_TODO
-    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
-        get_model(cfg).cache_specs(cfg, ParallelConfig(), False, size)
-    mesh = MeshShape(("data", "model"), (1, size))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*F3d"):
-        Engine(cfg, ParallelConfig(), ServeConfig(policy="mlr"), {},
-               mesh=mesh, device="cpu")
-    assert get_model(cfg).cache_specs(cfg, ParallelConfig(), False,
-                                      1)["ssm" if cfg.family == "hybrid"
-                                         else "wkv"][2] == "model"
+    ov = {"d_model": 96, "n_ssm_heads": heads}
+    cfg, rcfg = _port_cfg(arch, ov), _ref_cfg(arch, ov)
+    key = "ssm" if cfg.family == "hybrid" else "wkv"
+    want = ref_models.get_model(rcfg).cache_specs(rcfg, RefPCfg(), False,
+                                                  size)
+    got = get_model(cfg).cache_specs(cfg, ParallelConfig(), False, size)
+    assert got == {k: tuple(v) for k, v in want.items()}
+    assert got[key] == (None, ("pod", "data"), None, "model", None)
+    params = get_model(cfg).init(0, cfg, device="cpu")
+    with torch_dist.fake_mesh((1, size), rank=1) as mesh:
+        eng = Engine(cfg, ParallelConfig(), ServeConfig(max_seq=16), params,
+                     mesh=mesh, device="cpu")
+        batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32)}
+        _, ctx = eng._mesh_for(batch)
+        cache = eng.model.init_cache(cfg, 2, 16, ParallelConfig(),
+                                     device="cpu", mesh=ctx)
+    shape = get_model(cfg).cache_shapes(cfg, 2, 16)[key]
+    assert cache[key].shape == shape[:3] + (shape[3] // size, shape[4])
+    if cfg.family == "ssm":
+        tm = eng.params["layers"]["tmix"]
+        assert tm["w_r"].shape == (cfg.n_layers, 96, 96 // size)
+        assert tm["w_o"].shape == (cfg.n_layers, 96 // size, 96)
+    else:
+        mb = eng.params["layers"]["mamba"]
+        assert mb["w_out"].shape == (cfg.n_layers, 192 // size, 96)
+        assert mb["w_in"].shape == params["layers"]["mamba"]["w_in"].shape

@@ -5,9 +5,10 @@ step equal a hand count written out here from the shapes (never read back
 from the ``CommLog``).  The module's own schedule, `decode_comm`, is held
 to the same hand counts for reduced tinyllama-1.1b and granite-moe-3b-a800m
 (a tied head and the expert-parallel FFN), which ``chip_smoke.py`` uses at
-full width.  The reference's rows (jax 0.9.0, CPU, the same mesh) count
-another quantity, its compiled program's collectives, so they are not
-compared."""
+full width, and for rwkv6-3b at its published width on a (1, 16) mesh
+(the WKV state cut over its k dim).  The reference's rows (jax 0.9.0,
+CPU, the same mesh) count another quantity, its compiled program's
+collectives, so they are not compared."""
 import dataclasses
 
 import pytest
@@ -116,6 +117,38 @@ def test_decode_comm_equals_the_hand_count(arch, policy, batch):
         hand_count(cfg, policy, batch)[0]
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layers", [2, 32])
+def test_decode_comm_rwkv_k_cut_at_the_published_size(layers, dtype):
+    """rwkv6-3b at full width (d 2560, 40 heads of 64: 160 columns per
+    rank straddle heads, so the WKV state is cut over its k dim, 4 rows
+    of every head per rank) on a (1, 16) mesh under MLR, a batch of 8:
+    the schedule ``chip_smoke.py``'s `serve_kdim` holds the card's
+    CommLog to (2 layers), and the published depth, against a hand
+    count.  No 'data' axis, so no FSDP gather; the batch is whole on
+    every rank.  All-gathers over 16 send 15 x their input, all-reduces
+    2 x 15 / 16 x their bytes."""
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=layers,
+                              dtype=dtype)
+    m, b, d, f32 = 16, 8, 2560, 4
+    a = 2 if dtype == "bfloat16" else 4
+    gather = lambda nbytes: (m - 1) * nbytes  # noqa: E731
+    reduce = lambda nbytes: 2 * (m - 1) * nbytes // m  # noqa: E731
+    emb = [gather(b * d // m * a)]          # the feature blocks
+    layer = [gather(b * 3 * d // m * a),    # r, k, v whole, one gather
+             reduce(b * d * f32),           # the k rows' partial y
+             reduce(b * d * f32),           # w_o, row-parallel
+             reduce(b * d * f32),           # cmix.w_v, row-parallel
+             gather(b * d // m * a)]        # cmix's receptance
+    head = [gather(b * 65536 // m * f32)]   # the logits' vocab blocks
+    want = (sum(emb) + layers * sum(layer) + sum(head),
+            len(emb) + layers * len(layer) + len(head))
+    got = serve_policies.decode_comm(cfg, {"data": 1, "model": m}, b, "mlr")
+    assert got == want
+    if (layers, dtype) == (2, "bfloat16"):
+        assert want == (3233280, 12)
+
+
 def test_in_the_ports_benches():
     """The reference lists serve_policies in its runner
     (benchmarks/run.py:32); so does the port."""
@@ -138,3 +171,26 @@ def test_host_params_are_the_engines_cast_of_init(arch):
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+def test_host_params_keeps_a_block():
+    """With `block`, each leaf is cut as it is drawn: a rank's blocks of
+    reduced rwkv6-3b on a (1, 4) mesh under MLR, the same numbers as the
+    blocks of the whole tree (what ``Engine(..., local=True)`` takes)."""
+    from repro_torch.core import partitioning as part
+    from repro_torch.core.comm import MeshShape
+    from repro_torch.models import common as cm
+    from repro_torch.serve.engine import param_specs
+    cfg = reduce_config(get_config("rwkv6-3b"))
+    mesh, coord = MeshShape(("data", "model"), (1, 4)), {"data": 0,
+                                                          "model": 3}
+    specs = cm.flatten_paths(param_specs(cfg, "mlr", mesh))
+    got = cm.flatten_paths(serve_policies.host_params(
+        cfg, torch.device("cpu"), block=lambda path, leaf: part.local_shard(
+            leaf, specs[path], mesh, coord)))
+    whole = cm.flatten_paths(serve_policies.host_params(cfg,
+                                                        torch.device("cpu")))
+    for k, w in whole.items():
+        assert torch.equal(got[k], part.local_shard(w, specs[k], mesh,
+                                                    coord)), k
+    assert got["layers.tmix.w_r"].shape[-1] * 4 == cfg.d_model

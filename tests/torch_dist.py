@@ -11,6 +11,7 @@ suite's parallel workers cannot clash on ports.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import pathlib
@@ -47,6 +48,26 @@ def _entry(rank, n, init, out_dir, body, args):
     try:
         res = body(rank, n, *args)
         np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, rank: int, axes=("data", "model")):
+    """A ``DeviceMesh`` of `shape` in this process as rank `rank` of a
+    process group of torch's "fake" backend (no peers: its collectives
+    move nothing), for code that places shards but issues no collective,
+    such as building an `Engine`; the group is destroyed on exit."""
+    import math
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("fake", rank=rank, world_size=math.prod(shape),
+                            store=FakeStore())
+    try:
+        yield make_test_mesh(shape, axes, device_type="cpu")
     finally:
         dist.destroy_process_group()
 
@@ -368,7 +389,13 @@ def ep_cfg():
 #: (name, arch, overrides, mesh shape, policies): every family on a (2, 2)
 #: ('data', 'model') mesh, and on a (1, 4) one the heads that do not
 #: divide 'model' (the sequence-sharded cache): q and KV 6/3, q 8 | 4
-#: over KV 2, zamba's attention 6/6 over 4 SSM heads, whisper 6/6
+#: over KV 2, zamba's attention 6/6 over 4 SSM heads, whisper 6/6; and
+#: the SSM heads that do not divide it (the k-cut WKV state, the P-cut
+#: SSM state): the reduced 2 heads, fewer than 'model', and 6 heads at d
+#: 96, whose column and row blocks straddle heads (1.5 heads per rank,
+#: as rwkv6-3b's 40 heads over 16); and 2 heads of 6 (d 12; zamba d 6,
+#: P 6), whose k or P dim does not divide 'model' either, so the state
+#: stays whole on every rank while the projections are cut
 FAMILY_CASES = (
     ("rwkv6-3b", "rwkv6-3b", {}, (2, 2), ("mlr", "slr")),
     ("zamba2-7b", "zamba2-7b", {}, (2, 2), ("mlr", "slr")),
@@ -381,6 +408,14 @@ FAMILY_CASES = (
      {"n_heads": 6, "n_kv_heads": 6, "n_ssm_heads": 4}, (1, 4), ("mlr",)),
     ("whisper-base-h6", "whisper-base", {"n_heads": 6, "n_kv_heads": 6},
      (1, 4), ("mlr",)),
+    ("rwkv6-3b-kcut", "rwkv6-3b", {}, (1, 4), ("mlr",)),
+    ("rwkv6-3b-kcut-h6", "rwkv6-3b", {"d_model": 96, "n_ssm_heads": 6},
+     (1, 4), ("mlr",)),
+    ("zamba2-7b-pcut", "zamba2-7b", {}, (1, 4), ("mlr",)),
+    ("zamba2-7b-pcut-h6", "zamba2-7b", {"d_model": 96, "n_ssm_heads": 6},
+     (1, 4), ("mlr",)),
+    ("rwkv6-3b-kwhole", "rwkv6-3b", {"d_model": 12}, (1, 4), ("mlr",)),
+    ("zamba2-7b-pwhole", "zamba2-7b", {"d_model": 6}, (1, 4), ("mlr",)),
 )
 #: the archs whose long-context layout (the sequence over ('data',
 #: 'model') at batch 1) is held on a (2, 2) mesh
