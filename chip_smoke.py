@@ -324,9 +324,26 @@ and the script exits non-zero):
              every head, its normed channels relaid into w_out's row
              block), each bf16 and float32 and held as above; its
              seconds and each run's median step are printed.
-24. serve_kdim  rwkv6-3b at full width (40 heads of 64), 2 layers, on a
-             (1, 16) ('data', 'model') mesh of 16 spawned ranks sharing
-             the card over gloo (host-staged): 40 heads do not divide
+24. train_mesh  sharded training on a (2, 2) ('data', 'model') mesh,
+             inside pod_sync's 4 ranks after serve_mesh (its seconds are
+             in pod_sync's): tinyllama-1.1b at full width (d 2048, 32 q
+             / 4 KV heads, d_ff 5632, vocab 32000), 2 of 22 layers,
+             float32, attn_impl "pallas", remat "full", SyntheticLM seed
+             0 at 4 x 1024, 2 steps with sequence-parallel residuals and
+             2 without, each from the seed-0 state cut into the rank's
+             shards (FSDP over 'data', TP over 'model'); per rank every
+             shard's shape (its block under the param rules), the flash
+             forward 8 and backward 4 launches per run, exact, each on
+             16 of 32 q and 2 of 4 KV heads, every step's CommLog (calls,
+             wire and staged bytes) equal to
+             ``collective_schedules.train_step_comm``; the state gathered
+             whole and held on rank 0 against one process on the whole
+             batch with pod_sync's bounds (loss and grad norm 1e-5, m and
+             v 5e-5 of each leaf's max, params 0.05 x lr).
+25. serve_kdim  rwkv6-3b at full width (40 heads of 64), 2 layers, on a
+             (1, 16) ('data', 'model') mesh of 16 ranks forked from a
+             server that has loaded torch and the port (RANK_PRELOAD),
+             sharing the card over gloo (host-staged): 40 heads do not divide
              16, so the WKV state is cut over its k dim (4 rows of every
              head per rank; r, k, v gathered over 'model', the partial
              y summed in float32).  Each rank draws its blocks of the
@@ -339,7 +356,7 @@ and the script exits non-zero):
              runs to one process's `Engine` on the whole tree with
              serve_mesh's bounds.  Prints the phase's seconds, the
              median decode step and the bytes and calls per token.
-25. kernels  one JSON line: each kernel with its launches on its main
+26. kernels  one JSON line: each kernel with its launches on its main
              path, its error against the plain version, its time, the
              plain version's time, one PyTorch call's time where there
              is one, and its bound (`bound_ms`: the work this run's
@@ -355,6 +372,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import pathlib
 import statistics
@@ -699,6 +718,27 @@ SM_NEAR_TIE = 2 * SERVE_TOL
 #: the whole tree with `serve_mesh`'s bounds
 KD_MESH = ((1, 16), ("data", "model"))
 KD_RANKS, KD_LAYERS = 16, 2
+#: modules the forkserver imports once, started with the script so its
+#: imports overlap the first phases: `pod_sync`'s 4 and `serve_kdim`'s 16
+#: ranks fork from it with torch and the port loaded, where each spawned
+#: rank imported them itself (`serve_kdim`: 22.7 s before its rank 0
+#: started, one NVIDIA H100 80GB HBM3 at 700 W)
+RANK_PRELOAD = ["torch", "numpy", "repro_torch.serve.engine",
+                "repro_torch.benchmarks.serve_policies",
+                "repro_torch.benchmarks.collective_schedules",
+                "repro_torch.train.step"]
+#: phase `train_mesh`: sharded training on a (2, 2) ('data', 'model')
+#: mesh carved from `pod_sync`'s POD_RANKS spawned ranks (the card shared
+#: over gloo, every transfer host-staged): tinyllama-1.1b at full width
+#: (d 2048, 32 q / 4 KV heads, d_ff 5632, vocab 32000) cut to TM_LAYERS
+#: of its 22 layers, float32, attn "pallas", remat "full" (`launch/
+#: train.py`'s PCFG), SyntheticLM seed 0 at TM_BATCH x TM_SEQ, TM_STEPS
+#: steps with sequence-parallel residuals and TM_STEPS without, each
+#: from the seed-0 state cut into the rank's shards; rank 0 holds the
+#: assembled state to one process on the whole batch with `pod_sync`'s
+#: bounds
+TM_MESH = ((2, 2), ("data", "model"))
+TM_LAYERS, TM_BATCH, TM_SEQ, TM_STEPS = 2, 4, 1024, 2
 
 
 def float64_mode():
@@ -744,6 +784,7 @@ def pod_rank(rank: int, world: int, init: str, out_dir: str,
         res = pod_checks(rank, world, dev, marks, t_spawn)
         res["serve_mesh"] = serve_mesh_checks(rank, world, dev, marks,
                                               t_spawn)
+        res["train_mesh"] = train_mesh_checks(rank, dev, marks, t_spawn)
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -907,6 +948,143 @@ def pod_checks(rank: int, world: int, dev, marks: dict,
     return out
 
 
+def train_mesh_checks(rank: int, dev, marks: dict, t_spawn: float) -> dict:
+    """Phase `train_mesh`'s work in one rank of `pod_sync`'s spawn, as a
+    TM_MESH mesh: for sequence parallelism on and off, TM_STEPS steps of
+    ``make_train_step(cfg, pcfg, mesh)`` from the seed-0 state cut into
+    this rank's shards (``step.shard_state``) on its share of the batch
+    (``collectives.local_batch``).  Checked per rank: every shard's
+    shape (its block under the param rules: 1/'data' of each leaf cut
+    over 'data'), the flash forward's and backward's launches (forward
+    once per layer and once more in its recompute, backward once per
+    layer, each step) and their heads (this rank's 16 of 32 q and 2 of 4
+    KV), every rank the same losses, and each step's CommLog equal to
+    ``collective_schedules.train_step_comm``.  The state is then
+    gathered whole (``checkpoint.gather_whole``, every rank) and rank 0
+    holds it to one process on the whole batch (`pod_single_process`,
+    `pod_compare`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks.collective_schedules import train_step_comm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import _param_shapes
+    from repro_torch.core import partitioning as part
+    from repro_torch.core.collectives import local_batch
+    from repro_torch.core.comm import axis_sizes
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.common import flatten_paths
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import (init_state, make_grad_fn,
+                                        make_train_step, shard_state)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    torch.cuda.empty_cache()
+    mesh = make_test_mesh(*TM_MESH, device_type=dev.type)
+    sizes = axis_sizes(mesh)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TM_LAYERS,
+                              dtype="float32")
+    data = SyntheticLM(cfg.vocab_size, TM_SEQ, TM_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()} for i in range(TM_STEPS)]
+    local = [local_batch(b, mesh) for b in batches]
+    base = launch_train.PCFG
+    ref = (pod_single_process(cfg, base, batches, make_grad_fn(cfg, base),
+                              dev) if rank == 0 else None)
+    heads = []
+    orig = (fa_ops._forward, fa_ops._backward)
+
+    def fwd(q, k, v, causal):
+        heads.append(("fwd", q.shape[2], k.shape[2]))
+        return orig[0](q, k, v, causal)
+
+    def bwd(q, k, v, o, lse, do, causal):
+        heads.append(("bwd", q.shape[2], k.shape[2]))
+        return orig[1](q, k, v, o, lse, do, causal)
+
+    m_size = sizes["model"]
+    want_heads = (cfg.n_heads // m_size, cfg.n_kv_heads // m_size)
+    out = {"mesh": TM_MESH, "runs": {}}
+    fa_ops._forward, fa_ops._backward = fwd, bwd
+    try:
+        for sp in (True, False):
+            label = "sp" if sp else "no_sp"
+            pcfg = dataclasses.replace(base, seq_shard_activations=sp)
+            # pod_single_process's schedule
+            step = make_train_step(cfg, pcfg, mesh, total=POD_STEPS)
+            specs = step.ctx.specs
+            state = shard_state(init_state(0, cfg, device=dev), mesh)
+            flat_specs = flatten_paths(specs)
+            for tree in (state.params, state.opt.m, state.opt.v):
+                for k, leaf in flatten_paths(tree).items():
+                    want = part.local_shape(_param_shapes(cfg)[k],
+                                            flat_specs[k], mesh)
+                    if tuple(leaf.shape) != want:
+                        raise RuntimeError(
+                            f"train_mesh: {label}: {k} shard "
+                            f"{tuple(leaf.shape)}, want {want} "
+                            f"({flat_specs[k]})")
+            want_comm = train_step_comm(cfg, pcfg, sizes, TM_BATCH, TM_SEQ)
+            heads.clear()
+            sync()
+            fa_kernel.flash_attention_fwd.launches = 0
+            fa_kernel.flash_attention_bwd.launches = 0
+            losses, gnorms, step_s, comm = [], [], [], []
+            for i in range(TM_STEPS):
+                log = step.ctx.log
+                before = (log.ops, log.wire_bytes, log.staged_bytes)
+                t0 = time.perf_counter()
+                state, m = step(state, local[i])
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                step_s.append(time.perf_counter() - t0)
+                got = {"ops": log.ops - before[0],
+                       "wire_bytes": log.wire_bytes - before[1],
+                       "staged_bytes": log.staged_bytes - before[2]}
+                if got != want_comm:
+                    raise RuntimeError(f"train_mesh: {label} step {i}: "
+                                       f"CommLog {got}, want {want_comm}")
+                comm.append(got)
+            launches = [fa_kernel.flash_attention_fwd.launches,
+                        fa_kernel.flash_attention_bwd.launches]
+            want = [TM_STEPS * 2 * cfg.n_layers, TM_STEPS * cfg.n_layers]
+            if launches != want:
+                raise RuntimeError(f"train_mesh: {label}: flash launches "
+                                   f"{launches}, want {want}")
+            if sorted(set(h[1:] for h in heads)) != [want_heads] or \
+                    len(heads) != sum(want):
+                raise RuntimeError(f"train_mesh: {label}: flash calls on "
+                                   f"(q, kv) heads {sorted(set(heads))}, "
+                                   f"want {want_heads} each")
+            peers = [None] * dist.get_world_size()
+            dist.all_gather_object(peers, losses)
+            if any(p != losses for p in peers):
+                raise RuntimeError(f"train_mesh: {label}: ranks' losses "
+                                   f"{peers}")
+            whole = ckpt.gather_whole(state, mesh, specs)
+            run = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+                   "launches": launches, "heads": list(want_heads),
+                   "comm_per_step": comm[0]}
+            if ref is not None:
+                run["vs_single_process"] = pod_compare(
+                    f"train_mesh {label}", whole, losses, gnorms, ref)
+            out["runs"][label] = run
+            del state, whole
+            marks[f"train_mesh_{label}"] = time.time() - t_spawn
+    finally:
+        fa_ops._forward, fa_ops._backward = orig
+    if ref is not None:
+        out["single_process"] = {k: ref[k] for k in
+                                 ("losses", "grad_norms", "lrs", "seconds")}
+    return out
+
+
 def pod_single_process(cfg, pcfg, batches, grad_fn, dev) -> dict:
     """`pod_checks`' single-process run: POD_STEPS steps of `cfg` from the
     same seed-0 weights on the whole batch, no mesh; each step's gradient
@@ -1054,8 +1232,8 @@ def serve_mesh_checks(rank: int, world: int, dev, marks: dict,
 
     forced = []
 
-    def route(x, w, cfg):
-        top_w, top_ids, aux = orig[3](x, w, cfg)
+    def route(x, w, cfg, *stats):
+        top_w, top_ids, aux = orig[3](x, w, cfg, *stats)
         if forced:                      # the mesh run's experts
             top_ids = forced.pop(0).to(top_ids.dtype)
             probs = torch.softmax(x.float() @ w.float(), dim=-1)
@@ -4297,13 +4475,16 @@ def main() -> int:
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
             t0 = time.perf_counter()
-            mp.spawn(pod_rank, args=(POD_RANKS, f"file://{d}/init", d,
-                                     time.time()), nprocs=POD_RANKS)
+            mp.start_processes(pod_rank, args=(POD_RANKS, f"file://{d}/init",
+                                               d, time.time()),
+                               nprocs=POD_RANKS, start_method="forkserver")
             spawn_s = time.perf_counter() - t0
             ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
                      for r in range(POD_RANKS)]
-        # the same ranks' serving on a ('data', 'model') mesh: its own phase
+        # the same ranks' serving and training on a ('data', 'model') mesh:
+        # their own phases
         shared["serve_mesh"] = [r.pop("serve_mesh") for r in ranks]
+        shared["train_mesh"] = [r.pop("train_mesh") for r in ranks]
         lead = ranks[0]
         for r in ranks[1:]:
             for label, run in r["train"].items():
@@ -4359,6 +4540,9 @@ def main() -> int:
     t_start = time.perf_counter()
     shared: dict = {}
     smi = card()
+    # the spawned ranks' server (RANK_PRELOAD), loading in the background
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    multiprocessing.forkserver.ensure_running()
     build()
     golden()
     parity()
@@ -4454,6 +4638,59 @@ def main() -> int:
     sm_stats = serve_mesh()
 
     # ------------------------------------------------------------------
+    # sharded training on a ('data', 'model') mesh: pod_sync's ranks
+    # ------------------------------------------------------------------
+    @phase("train_mesh")
+    def train_mesh():
+        ranks = shared.pop("train_mesh")
+        marks = pod_stats["rank0_marks_s"]
+        rank_s = (marks["train_mesh_no_sp"]
+                  - marks[f"serve_mesh_{SM_WIDE_RUNS[-1][0]}"])
+        lead = ranks[0]
+        launches = {"flash": sum(run["launches"][0] for r in ranks
+                                 for run in r["runs"].values()),
+                    "flash_bwd": sum(run["launches"][1] for r in ranks
+                                     for run in r["runs"].values())}
+        st = {"ranks": POD_RANKS, "mesh": TM_MESH,
+              "backend": pod_stats["backend"], "arch": TRAIN_ARCH,
+              "n_layers": TM_LAYERS, "dtype": "float32",
+              "batch": TM_BATCH, "seq": TM_SEQ, "steps": TM_STEPS,
+              "runs": lead["runs"], "single_process":
+                  lead["single_process"],
+              "per_rank_launches": [{k: run["launches"] for k, run
+                                     in r["runs"].items()} for r in ranks],
+              "launches": launches, "seconds_in_ranks": rank_s,
+              "card": smi}
+        print(json.dumps({"train_mesh": st}), flush=True)
+        rows = []
+        for label, run in lead["runs"].items():
+            vs, comm = run["vs_single_process"], run["comm_per_step"]
+            rows.append(
+                f"{label}: losses {run['losses']}, steps "
+                + ", ".join(f"{t:.2f}" for t in run["step_s"])
+                + f" s, {comm['wire_bytes'] / 1e9:.4f} GB on the wire and "
+                f"{comm['staged_bytes'] / 1e9:.4f} GB staged per rank per "
+                f"step ({comm['ops']} calls, equal to train_step_comm), "
+                f"against one process: loss/gnorm "
+                f"{vs['loss_gnorm_rel']:.1e}, params "
+                f"{vs['params_err_over_tol']:.2f}, m "
+                f"{vs['m_err_over_tol']:.2f}, v {vs['v_err_over_tol']:.2f} "
+                f"of tolerance ({vs['params_excused']} noise elements "
+                f"excused)")
+        return st, (
+            f"{POD_RANKS} ranks of pod_sync's spawn on one card over "
+            f"{st['backend']} as a {TM_MESH[0]} {TM_MESH[1]} mesh (every "
+            f"transfer host-staged: not NVLink; {smi}); {TRAIN_ARCH} "
+            f"({TM_LAYERS} layers, float32) B{TM_BATCH} x {TM_SEQ}, "
+            f"{TM_STEPS} steps each: " + "; ".join(rows)
+            + f"; flash launches {launches} (per rank and run "
+            f"{lead['runs']['sp']['launches']}, on "
+            f"{lead['runs']['sp']['heads']} (q, kv) heads); "
+            f"{rank_s:.1f} s inside the ranks (in pod_sync's time)")
+
+    tm_stats = train_mesh()
+
+    # ------------------------------------------------------------------
     # the k-cut WKV state: rwkv6-3b over 16 ranks sharing the card
     # ------------------------------------------------------------------
     @phase("serve_kdim")
@@ -4463,8 +4700,9 @@ def main() -> int:
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
             t0 = time.perf_counter()
-            mp.spawn(kdim_rank, args=(KD_RANKS, f"file://{d}/init", d,
-                                      time.time()), nprocs=KD_RANKS)
+            mp.start_processes(kdim_rank, args=(KD_RANKS, f"file://{d}/init",
+                                                d, time.time()),
+                               nprocs=KD_RANKS, start_method="forkserver")
             spawn_s = time.perf_counter() - t0
             ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
                      for r in range(KD_RANKS)]
@@ -4553,6 +4791,7 @@ def main() -> int:
             "train_encdec_launches": encdec_train["launches"]["flash"],
             "pod_sync_launches": pod_stats["launches"]["flash"],
             "serve_mesh_launches": sm_stats["launches"]["flash"],
+            "train_mesh_launches": tm_stats["launches"]["flash"],
             "max_abs_err": attn_err["flash"], **attn["flash"],
             "shape": "q (8,256,32,64), k/v (8,256,4,64) bf16, causal",
             "train_shape_ms": bwd["fwd_ms"],
@@ -4578,6 +4817,7 @@ def main() -> int:
             "train_hybrid_launches": hybrid_train["launches"]["flash_bwd"],
             "train_encdec_launches": encdec_train["launches"]["flash_bwd"],
             "pod_sync_launches": pod_stats["launches"]["flash_bwd"],
+            "train_mesh_launches": tm_stats["launches"]["flash_bwd"],
             "max_abs_err": bwd_err["max_abs"],
             "max_rel_err": bwd_err["max_rel"],
             **{k: bwd[k] for k in ("ms", "plain_ms", "library_ms",

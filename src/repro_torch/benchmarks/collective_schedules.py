@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import tempfile
 import time
@@ -89,6 +90,142 @@ def measure(group, device) -> list[dict]:
                      "staged_bytes": log.staged_bytes, "max_abs_err": err,
                      "transport": transport(group, log)})
     return rows
+
+
+def train_step_comm(cfg, pcfg, sizes: dict, batch: int, seq: int) -> dict:
+    """What one sharded train step of a dense transformer (``train/step.py``
+    on a ('pod', 'data', 'model') mesh of `sizes`, remat "full", the
+    batch's global `batch` x `seq` tokens) puts in each rank's
+    ``CommLog`` (the 'pod' sync is not counted there), counted from the
+    shapes: {"ops", "wire_bytes",
+    "staged_bytes"}, staged as on gloo with the tensors on a card (every
+    buffer through the host).  The ring model's wire bytes: an all-gather
+    of an n-way cut sends (n - 1) blocks, a reduce-scatter to a block the
+    same, an all-reduce 2(n - 1)/n of its bytes; staged, the buffer each
+    call hands the backend (a reduce-scatter's is its n blocks).
+
+    Element sizes: the float32 params' layer weights, the tensor-parallel
+    exits' float32 partial sums, the loss's reductions and the gradients'
+    sums in float32; the embedding's rows, the sequence-parallel
+    gathers of the normed rows, the final rows and the head (cast before
+    its gather) in ``cfg.dtype``; each adjoint in its forward's dtype.
+
+    Forward: the token ids and the embedding's feature blocks gathered
+    (over 'data', then 'model' and 'data'); per layer the seven FSDP
+    gathers over 'data', and with sequence parallelism a gather of the
+    normed rows over 'model' before attention and the MLP and a
+    reduce-scatter at each exit (``sp_boundary`` "layer": one gather at
+    the layer's entry, an all-reduce at the attention's exit; without
+    it, an all-reduce at each exit); the final hidden rows gathered; per
+    loss chunk the head's gather (a tied head: the table's feature blocks
+    over 'model', then 'data') and three all-reduces over 'model' (max,
+    sum of exponentials, the label's logit).  Remat: each layer's
+    recompute re-issues its collectives up to its last saved tensor (all
+    but the MLP's exit), a loss chunk's all of them.  Backward: each
+    forward collective that carries a gradient once more as its adjoint
+    (same wire bytes; a gather's staged bytes become its reduce-scatter's
+    n blocks and back); the token ids and the max carry none.  Then one
+    all-reduce per axis of the replicated leaves' gradients, the loss's
+    sum over 'data', and the clip's two scalar sums."""
+    from repro_torch.configs.base import _param_shapes
+    from repro_torch.core.comm import MeshShape
+    from repro_torch.core.partitioning import config_specs
+    from repro_torch.models.common import entry_axes, flatten_paths
+    dd, m = sizes.get("data", 1), sizes.get("model", 1)
+    if cfg.family != "dense" or (cfg.tie_embeddings and m > 1
+                                 and cfg.vocab_size % m):
+        raise NotImplementedError(f"train_step_comm: {cfg.name} is not a "
+                                  f"dense transformer whose head 'model' "
+                                  f"cuts by vocab")
+    f, e = 4, torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    d, n_layers = cfg.d_model, cfg.n_layers
+    b = batch // (sizes.get("pod", 1) * dd)
+    sp = pcfg.seq_shard_activations and m > 1 and seq % m == 0
+    c = min(pcfg.logit_chunk, seq)
+    chunks = seq // c if seq % c == 0 else 1
+    log = {"ops": 0, "wire_bytes": 0, "staged_bytes": 0}
+
+    def op(n, times, wire, staged):
+        if n > 1:
+            log["ops"] += times
+            log["wire_bytes"] += times * round(wire)
+            log["staged_bytes"] += times * staged
+
+    def ag(block, n, times=1):          # all-gather of an n-way cut block
+        op(n, times, (n - 1) * block, block)
+
+    def rs(block, n, times=1):          # reduce-scatter to a block
+        op(n, times, (n - 1) * block, n * block)
+
+    def ar(nbytes, n, times=1):
+        op(n, times, 2 * (n - 1) / n * nbytes, nbytes)
+
+    # the embedding: the ids (no gradient); the feature blocks over
+    # 'model', then 'data', and their adjoints
+    ag(b * seq * 4, dd)
+    for block, n in ((b * dd * seq * d // (dd * m) * e, m),
+                     (b * dd * seq * d // dd * e, dd)):
+        ag(block, n)
+        rs(block, n)
+    # each layer's FSDP gathers: forward, recompute; adjoint
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    for n_el in (d * hq * hd, d * hkv * hd, d * hkv * hd, hq * hd * d,
+                 d * cfg.d_ff, d * cfg.d_ff, cfg.d_ff * d):
+        ag(n_el // (dd * m) * f, dd, 2 * n_layers)
+        rs(n_el // (dd * m) * f, dd, n_layers)
+    # a sequence block's rows: entries and the final rows in cfg.dtype,
+    # the exits' partial sums in float32
+    rows = b * (seq // m if sp else seq) * d
+    if sp and pcfg.sp_boundary == "layer":
+        # a layer's entry: forward, recompute; adjoint
+        ag(rows * e, m, 2 * n_layers)
+        rs(rows * e, m, n_layers)
+        # the attention's exit, an all-reduce of the whole rows: forward,
+        # recompute, adjoint; the MLP's exit and its adjoint
+        ar(rows * m * f, m, 3 * n_layers)
+        rs(rows * f, m, n_layers)
+        ag(rows * f, m, n_layers)
+    elif sp:
+        # a layer's two entries: forward, recompute; adjoints
+        ag(rows * e, m, 2 * 2 * n_layers)
+        rs(rows * e, m, 2 * n_layers)
+        # its two exits: forward, the attention's recomputed; adjoints
+        rs(rows * f, m, 3 * n_layers)
+        ag(rows * f, m, 2 * n_layers)
+    else:
+        # a layer's two exits: forward, the attention's recomputed;
+        # adjoints
+        ar(rows * f, m, 5 * n_layers)
+    if sp:      # the final rows gathered, and the adjoint
+        ag(rows * e, m)
+        rs(rows * e, m)
+    # the loss: per chunk the head's gather and three all-reduces, all
+    # recomputed; the adjoints of the gather and of two of them
+    if cfg.tie_embeddings:
+        table = cfg.vocab_size * d // dd * e
+        for block, n in ((table // m, m), (table, dd)):
+            ag(block, n, 2 * chunks)
+            rs(block, n, chunks)
+    else:
+        head = d // dd * (cfg.vocab_size // m) * e
+        ag(head, dd, 2 * chunks)
+        rs(head, dd, chunks)
+    ar(b * c * f, m, 8 * chunks)
+    # the replicated leaves' gradients, one bucket per axis; the loss's
+    # sum over 'data'; the clip's sum per axis of the cut leaves' squares
+    mesh = MeshShape(tuple(sizes), tuple(sizes.values()))
+    specs = flatten_paths(config_specs(cfg, mesh))
+    axes = {k: {a for e in spec for a in entry_axes(e)}
+            for k, spec in specs.items()}
+    shapes = _param_shapes(cfg)
+    for axis, n in (("data", dd), ("model", m)):
+        ar(sum(math.prod(shapes[k]) for k in specs
+               if axis not in axes[k]) * f, n)
+    ar(4, dd)
+    for cut in {tuple(sorted(a)) for a in axes.values() if a}:
+        for a in cut:
+            ar(4, sizes[a])
+    return log
 
 
 def transport(group, log) -> str:

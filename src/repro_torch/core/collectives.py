@@ -27,7 +27,12 @@ The ring primitives add in the reference's order, so their float32
 results equal the reference's bit for bit.  `tree_sync` reduces a
 gradient tree across the 'pod' axis leaf by leaf; `pod_sync_wrap` wraps a
 gradient function with it (the hierarchical cross-pod sync of
-``train/step.py``).
+``train/step.py``).  `all_gather`, `all_reduce` and `reduce_scatter` are
+the fused collectives with autograd (each backward its adjoint over the
+ranks, counted in the same `CommLog`), which ``models.common.
+MeshContext`` issues, so the sharded train step differentiates through
+its gathers and sums; `local_batch` cuts a global batch over ('pod',
+'data').
 """
 from __future__ import annotations
 
@@ -36,9 +41,10 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.comm import (CommLog, axis_group, axis_sizes, ring_hop,
-                                   stages_on_host, to_host)
-from repro_torch.models.common import map_tree
+from repro_torch.core.comm import (CommLog, axis_coords, axis_group,
+                                   axis_sizes, ring_hop, stages_on_host,
+                                   to_host)
+from repro_torch.models.common import block_index, map_tree
 from repro_torch.train.compression import compressed_ring_all_reduce
 
 #: `tree_sync`'s modes; `pod_sync_wrap` also takes "auto" (as "dedicated")
@@ -126,12 +132,105 @@ def dedicated_all_gather(x, group, log: CommLog | None = None):
     return out.to(x.device) if staged else out
 
 
-def dedicated_all_reduce(x, group, log: CommLog | None = None):
-    """The backend's fused all-reduce (sum), out of place."""
+def dedicated_all_reduce(x, group, log: CommLog | None = None,
+                         op: str = "sum"):
+    """The backend's fused all-reduce ("sum" or "max"), out of place."""
     n, _ = _n_rank(group)
     buf, staged = _fused(x, group, log, 2 * (n - 1) / n)
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
     return buf.to(x.device) if staged else buf
+
+
+def dedicated_reduce_scatter(x, group, log: CommLog | None = None):
+    """The backend's fused reduce-scatter: x (n, ...) per rank; returns
+    block i summed over the group on group rank i, counted with (n-1)/n
+    of the input's bytes on the wire (the ring model)."""
+    n, i = _n_rank(group)
+    if x.shape[0] != n:
+        raise ValueError(f"dedicated_reduce_scatter: leading dim "
+                         f"{x.shape[0]} != group size {n}")
+    buf, staged = _fused(x, group, log, (n - 1) / n)
+    out = torch.empty(tuple(buf.shape[1:]), dtype=buf.dtype,
+                      device=buf.device, pin_memory=staged)
+    dist.reduce_scatter_tensor(out.view(-1), buf.view(-1), group=group)
+    return out.to(x.device) if staged else out
+
+
+# ----------------------------------------------------------------------------
+# differentiable fused collectives (the training path of models.MeshContext)
+# ----------------------------------------------------------------------------
+#
+# Each rank's copy of a tensor is its own variable, so each collective's
+# backward is its adjoint over the ranks: an all-gather's is the
+# reduce-scatter of the gradient's blocks, an all-reduce's the all-reduce
+# of the gradients, a reduce-scatter's the all-gather.  A value every rank
+# of a group computes alike (a replicated activation, a loss) thus sends
+# each rank's share of the gradient back through the collectives that made
+# it; the train step scales the loss and sums the gradients of the
+# replicated parameters to match (``train/step.py``).  The backward's
+# collectives are counted in the forward's `CommLog`.
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, log):
+        ctx.group, ctx.log = group, log
+        return dedicated_all_gather(x, group, log)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dedicated_reduce_scatter(g, ctx.group, ctx.log), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, log):
+        ctx.group, ctx.log = group, log
+        return dedicated_all_reduce(x, group, log)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dedicated_all_reduce(g, ctx.group, ctx.log), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, log):
+        ctx.group, ctx.log = group, log
+        return dedicated_reduce_scatter(x, group, log)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dedicated_all_gather(g, ctx.group, ctx.log), None, None
+
+
+def _tracked(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x, group, log: CommLog | None = None):
+    """`dedicated_all_gather` with the reduce-scatter of the gradient's
+    blocks as its backward (where `x` takes a gradient)."""
+    if _tracked(x):
+        return _AllGather.apply(x, group, log)
+    return dedicated_all_gather(x, group, log)
+
+
+def all_reduce(x, group, log: CommLog | None = None):
+    """`dedicated_all_reduce` (sum) with the sum of the gradients as its
+    backward (where `x` takes a gradient)."""
+    if _tracked(x):
+        return _AllReduce.apply(x, group, log)
+    return dedicated_all_reduce(x, group, log)
+
+
+def reduce_scatter(x, group, log: CommLog | None = None):
+    """`dedicated_reduce_scatter` with the all-gather of the gradient as
+    its backward (where `x` takes a gradient)."""
+    if _tracked(x):
+        return _ReduceScatter.apply(x, group, log)
+    return dedicated_reduce_scatter(x, group, log)
 
 
 # ----------------------------------------------------------------------------
@@ -180,22 +279,23 @@ def tree_sync(tree, group, mode: str = "cascaded", mean: bool = True,
 
 
 def local_batch(batch: dict, mesh) -> dict:
-    """This rank's share of a global batch over the mesh's 'pod' axis, as
-    the reference's in_specs cut it: positions (3, B, S) on dim 1, every
-    other leaf on its leading (batch) dim, in equal consecutive slices in
-    group-rank order.  The batch as it is without a 'pod' axis of size
-    > 1."""
-    n = axis_sizes(mesh).get("pod", 1) if mesh is not None else 1
-    if n == 1:
+    """This rank's share of a global batch over the mesh's ('pod', 'data')
+    axes (the reference's ``batch_specs``, 'pod' major), whole over
+    'model': positions (3, B, S) on dim 1, every other leaf on its
+    leading (batch) dim, in equal consecutive slices in block order.  The
+    batch as it is where neither axis has size > 1."""
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+    if not axes:
         return batch
-    r = dist.get_rank(axis_group(mesh, "pod"))
+    r, n = block_index(axes, axis_coords(mesh), sizes)
 
     def cut(name, leaf):
         d = 1 if name == "positions" else 0
         b = leaf.shape[d]
         if b % n:
             raise ValueError(f"local_batch: {name} has {b} rows on dim {d}, "
-                             f"not divisible by the {n} pods")
+                             f"not divisible by the {n} ranks of {axes}")
         k = b // n
         return leaf[:, r * k:(r + 1) * k] if d else leaf[r * k:(r + 1) * k]
 

@@ -112,6 +112,16 @@ def param_specs(params: Any, mesh) -> Any:
         params)
 
 
+def config_specs(cfg, mesh) -> Any:
+    """The filtered specs of `cfg`'s params on `mesh`, from the config's
+    global shapes (``configs.base._param_shapes``): no tensor needed,
+    whatever a rank holds."""
+    from repro_torch.configs.base import _param_shapes
+    return unflatten_paths({path: filter_spec(
+        spec_for_param(path, len(shape)), tuple(shape), mesh)
+        for path, shape in _param_shapes(cfg).items()})
+
+
 def param_shardings(params: Any, device_mesh) -> Any:
     return shardings(param_specs(params, device_mesh), device_mesh)
 

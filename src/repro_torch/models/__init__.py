@@ -3,15 +3,16 @@
 
 Every family module exposes the same functional API:
   init(gen, cfg, device) -> params
-  forward(params, batch, cfg, pcfg) -> (hidden (B,S,d), {aux_loss})
+  forward(params, batch, cfg, pcfg, mesh=None) -> (hidden (B,S,d), {aux_loss})
   init_cache(cfg, batch, max_seq, pcfg, device=...) -> cache
   prefill(params, batch, cache, cfg, pcfg) -> (cache, last_hidden (B,1,d))
   decode(params, tokens (B,1), cache, cfg, pcfg) -> (cache, logits (B,1,V))
   cache_specs(cfg, pcfg, long_ctx, model_size) -> {cache leaf: spec}
 plus transformer.logits_fn for the LM head.  Every family also runs on
-a mesh (``mesh=``, a ``common.MeshContext``): its prefill, decode,
-init_cache and logits_fn take it, with every cache layout of the
-reference's ``cache_specs`` (`check_mesh`).  Every family of the
+a mesh (``mesh=``, a ``common.MeshContext``): its forward (training,
+``train/step.py``), prefill, decode, init_cache and logits_fn take it,
+with every cache layout of the reference's ``cache_specs``
+(`check_mesh`).  Every family of the
 reference is ported: the transformer's three (dense, VLM with M-RoPE,
 MoE), RWKV6 (ssm), Zamba2 (hybrid: Mamba2 + a shared attention block)
 and Whisper (encdec).

@@ -23,9 +23,24 @@ leaf over its 'data' (and 'pod') entries, layer by layer at use
 become `embed_lookup`'s gathers of token ids and feature blocks.  Every
 collective goes through ``core/collectives.py`` and is counted in the
 context's ``CommLog``.
+
+Training runs the same code under autograd: the gathers, sums and
+reduce-scatters are ``collectives.all_gather`` / ``all_reduce`` /
+``reduce_scatter``, whose backwards are their adjoints over the ranks
+(the FSDP gather's is the reduce-scatter of the weight's gradient onto
+this rank's shard), so a rank's gradients are those of its own share of
+the loss; ``train/step.py`` scales the loss and sums the replicated
+leaves' gradients to match.  Sequence parallelism (``seq_parallel``,
+the training layout of ``pcfg.seq_shard_activations``): a stack's
+residual stream is this rank's block of the sequence (`seq_view`,
+`seq_rows`); a block gathers its input's sequence over 'model'
+(`seq_join`), and its tensor-parallel exit (`MeshContext.tp_out`) is a
+reduce-scatter over the sequence in place of the all-reduce; a block
+whose output is whole over 'model' keeps its rows (`seq_leave`).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any
@@ -283,6 +298,15 @@ class MeshContext:
     batch_axes: tuple = ()
     cache_specs: dict | None = None
     log: Any = None
+    #: training: the residual stream may be cut over the sequence on
+    #: 'model' (`seq_view` decides per stack); `sp_boundary` "op" or "layer"
+    seq_parallel: bool = False
+    sp_boundary: str = "op"
+    #: training: the MoE router's load-balance statistics are summed over
+    #: the batch's 'data' cut (the reference's whole-batch aux loss)
+    train: bool = False
+    #: set on a `seq_view`: this stack's residual is cut over the sequence
+    seq_cut: bool = False
 
     def __post_init__(self):
         from repro_torch.core.comm import (CommLog, axis_coords, axis_group,
@@ -317,23 +341,64 @@ class MeshContext:
     def gather(self, x, dim: int, axes):
         """The blocks of a dim cut over `axes` (first major) joined on `dim`,
         from every rank that differs from this one on those axes: one
-        fused all-gather per axis of size > 1, the minor axis first."""
-        from repro_torch.core.collectives import dedicated_all_gather
+        fused all-gather per axis of size > 1, the minor axis first (its
+        backward: the reduce-scatter of the gradient's blocks)."""
+        from repro_torch.core.collectives import all_gather
         dim = dim % x.dim()
         for a in reversed(tuple(axes)):
             if self.sizes.get(a, 1) > 1:
-                parts = dedicated_all_gather(x, self.groups[a], self.log)
+                parts = all_gather(x, self.groups[a], self.log)
                 x = parts.movedim(0, dim).flatten(dim, dim + 1)
         return x
 
     def sum(self, x, axes):
         """`x` summed over the ranks of `axes`: one fused all-reduce per
-        axis of size > 1."""
+        axis of size > 1 (its backward: the all-reduce of the
+        gradient)."""
+        from repro_torch.core.collectives import all_reduce
+        for a in axes:
+            if self.sizes.get(a, 1) > 1:
+                x = all_reduce(x, self.groups[a], self.log)
+        return x
+
+    def scatter(self, x, dim: int, axes):
+        """`x` summed over the ranks of `axes`, of which this rank keeps its
+        block of `dim` (cut over `axes`, the first major): one fused
+        reduce-scatter per axis of size > 1, the major axis first (its
+        backward: the all-gather of the gradient)."""
+        from repro_torch.core.collectives import reduce_scatter
+        dim = dim % x.dim()
+        for a in axes:
+            n = self.sizes.get(a, 1)
+            if n > 1:
+                blocks = x.unflatten(dim, (n, x.shape[dim] // n))
+                x = reduce_scatter(blocks.movedim(dim, 0).contiguous(),
+                                   self.groups[a], self.log)
+        return x
+
+    def max(self, x, axes):
+        """`x`'s elementwise max over the ranks of `axes` (no gradient): one
+        fused all-reduce per axis of size > 1."""
         from repro_torch.core.collectives import dedicated_all_reduce
         for a in axes:
             if self.sizes.get(a, 1) > 1:
-                x = dedicated_all_reduce(x, self.groups[a], self.log)
+                x = dedicated_all_reduce(x, self.groups[a], self.log, "max")
         return x
+
+    def tp_out(self, partial):
+        """The exit of a tensor-parallel block, the float32 partial product
+        of this rank's share: summed over 'model', or, where the stack's
+        residual is cut over the sequence (`seq_cut`), reduce-scattered
+        over it (dim 1) so this rank keeps its block."""
+        if self.seq_cut:
+            return self.scatter(partial, 1, ("model",))
+        return self.sum(partial, ("model",))
+
+    def view(self, seq_cut: bool) -> "MeshContext":
+        """This context with `seq_cut` set (the same groups and log)."""
+        out = copy.copy(self)
+        out.seq_cut = seq_cut
+        return out
 
     def fsdp(self, leaf, spec: tuple):
         """The FSDP gather at use: `leaf` (a local shard under `spec`) with
@@ -366,10 +431,55 @@ class MeshContext:
 
 def row_parallel(x, w, mesh: MeshContext):
     """``x @ w`` of a row-parallel block (`x`'s columns and `w`'s rows are
-    this rank's share): the float32 partial product summed over 'model',
-    then rounded once to the product's dtype, as the whole product is."""
-    out = mesh.sum(matmul_f32(x, w), ("model",))
+    this rank's share): the float32 partial product summed over 'model'
+    (reduce-scattered over the sequence where it is cut,
+    `MeshContext.tp_out`), then rounded once to the product's dtype, as
+    the whole product is."""
+    out = mesh.tp_out(matmul_f32(x, w))
     return out.to(torch.promote_types(x.dtype, w.dtype))
+
+
+# ----------------------------------------------------------------------------
+# sequence parallelism (training)
+# ----------------------------------------------------------------------------
+
+
+def seq_view(mesh, s: int):
+    """The context a stack of sequence length `s` runs its layers under:
+    `mesh` with ``seq_cut`` where sequence parallelism is on and 'model'
+    divides `s`; `mesh` itself otherwise (and ``None`` without one)."""
+    if mesh is None or not mesh.seq_parallel:
+        return mesh
+    m = mesh.size(("model",))
+    return mesh.view(m > 1 and s % m == 0)
+
+
+def seq_rows(x, mesh):
+    """This rank's block of `x`'s sequence (dim 1) where the stack's
+    residual is cut; `x` otherwise."""
+    if mesh is None or not mesh.seq_cut:
+        return x
+    i, n = mesh.block(("model",))
+    k = x.shape[1] // n
+    return x[:, i * k:(i + 1) * k]
+
+
+def seq_join(x, mesh):
+    """The whole sequence from this rank's block, gathered over 'model'
+    (a block's entry, the stack's end), where the residual is cut; `x`
+    otherwise."""
+    if mesh is None or not mesh.seq_cut:
+        return x
+    return mesh.gather(x, 1, ("model",))
+
+
+def seq_leave(y, x, mesh):
+    """A block's output `y` on the residual `x`'s rows: as it is where its
+    exit reduce-scattered it (or nothing is cut), this rank's rows where
+    it is whole over 'model'."""
+    if mesh is None or not mesh.seq_cut or y.shape[1] == x.shape[1]:
+        return y
+    return seq_rows(y, mesh)
 
 
 def embed_lookup(table, tokens, cfg, mesh: MeshContext):

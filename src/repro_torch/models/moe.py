@@ -35,8 +35,11 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import common as cm
 
 
-def route(x, w_router, cfg: ModelConfig):
-    """x (B,S,d) -> (top_w (B,S,k) f32, top_ids (B,S,k) int64, aux_loss)."""
+def route(x, w_router, cfg: ModelConfig, mesh=None, stat_axes=()):
+    """x (B,S,d) -> (top_w (B,S,k) f32, top_ids (B,S,k) int64, aux_loss).
+    With `stat_axes`, the load-balance loss's token counts and probability
+    sums are summed over those axes of `mesh` first (the rows there are
+    one batch cut over them): the whole batch's loss."""
     k = cfg.moe.experts_per_token
     e = cfg.moe.n_experts
     logits = torch.matmul(x.float(), w_router.float())
@@ -46,8 +49,13 @@ def route(x, w_router, cfg: ModelConfig):
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     t = probs.shape[0] * probs.shape[1]
     counts = torch.bincount(top_ids.reshape(-1), minlength=e).float()
+    if stat_axes:
+        t *= mesh.size(stat_axes)
+        counts = mesh.sum(counts, stat_axes)
+        p_mean = mesh.sum(probs.sum(dim=(0, 1)), stat_axes) / t
+    else:
+        p_mean = probs.mean(dim=(0, 1))
     f = counts / (t * k)
-    p_mean = probs.mean(dim=(0, 1))
     aux = cfg.moe.aux_loss_weight * e * torch.sum(f * p_mean)
     return top_w, top_ids, aux
 
@@ -188,18 +196,21 @@ def _moe_ep_block(x, top_w, top_ids, experts, cfg: ModelConfig, mesh):
     contrib = yf[slot].float() * (sw * keep)[:, None]
     out = torch.zeros((t, d), dtype=torch.float32,
                       device=x.device).index_add_(0, st, contrib)
-    return mesh.sum(out, ("model",)).reshape(b, s, d)
+    return mesh.tp_out(out.reshape(b, s, d))
 
 
 def _moe_expert_parallel(x, p, cfg: ModelConfig, mesh):
     """Expert parallelism over 'model' (the reference's ``_moe_shard_map``
     path of ``moe_ffn``): this rank's rows mapped onto the reference's
     token block, routed, dispatched to this rank's experts
-    (`_moe_ep_block`) and mapped back.  The aux loss is the block's (the
-    reference's is the whole batch's; serving drops it)."""
+    (`_moe_ep_block`) and mapped back.  Serving drops the aux loss: it
+    is the block's.  Training (``mesh.train``) sums its statistics over
+    the block's 'data' cut, the reference's whole batch (per pod, as the
+    reference's cross-pod step computes it)."""
     batch = x.shape[0] * mesh.size(mesh.batch_axes)
     block = _reference_block_axes(mesh, batch)
     xb = _to_block(x, mesh, block)
-    top_w, top_ids, aux = route(xb, p["router"], cfg)
+    stats = tuple(a for a in block if a != "pod") if mesh.train else ()
+    top_w, top_ids, aux = route(xb, p["router"], cfg, mesh, stats)
     out = _moe_ep_block(xb, top_w, top_ids, p["experts"], cfg, mesh)
     return _from_block(out, mesh, block).to(x.dtype), aux

@@ -58,9 +58,11 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
+from repro_torch.models.transformer import _index
 from repro_torch.models.transformer import _layer as _layer_params
 from repro_torch.models.transformer import (cache_block, embed_tokens,
-                                            logits_fn)
+                                            gather_layer, logits_fn,
+                                            remat_call)
 
 XLA_CHUNK = 32  # intra-chunk tensor is (B, c, c, H, hd) — keep c modest
 
@@ -192,7 +194,8 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
     heads (the heads do not divide 'model'), `state` holds the rank's k
     rows of every head (all of them where hd does not divide 'model'):
     r, k and v are gathered over 'model', the WKV runs on those rows,
-    and its partial y is summed over 'model' (`_k_rows`)."""
+    and its partial y is summed over 'model' (`_k_rows`).  `state` None:
+    a fresh sequence (training), a zero state of this rank's layout."""
     b, s, d = x.shape
     h = cfg.ssm.n_ssm_heads
     hd = d // h
@@ -213,6 +216,10 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
         dec = dec[..., i * h * hd:(i + 1) * h * hd]
         u, ln_x = u[i * h:(i + 1) * h], ln_x[i * h:(i + 1) * h]
     logw = -torch.exp(dec.float() - 2.0)           # w in (0,1); slow init
+    if state is None:
+        m = mesh.size(("model",)) if cw != d and cw % hd else 1
+        state = torch.zeros((b, h, hd // m if hd % m == 0 else hd, hd),
+                            dtype=torch.float32, device=x.device)
     if cw != d and cw % hd:                        # columns straddle heads
         r4, k4, v4, w4, u, combine = _k_rows(r, k, v, logw, u,
                                              state.shape[-2], h, hd, mesh)
@@ -225,7 +232,8 @@ def time_mix(p, x, x_prev, cfg: ModelConfig, pcfg: ParallelConfig,
                                   state)
         if combine is not None:
             y = combine(y)
-    elif pcfg.attn_impl == "pallas" and fresh and s % chunk == 0:
+    elif (pcfg.attn_impl == "pallas" and fresh and s % chunk == 0
+          and combine is None):
         # the WKV6 kernel (zero initial state = fresh sequence)
         from repro_torch.kernels.wkv6 import ops as wkv_ops
         tr = lambda a: a.transpose(1, 2)  # noqa: E731  (B,S,H,hd)<->(B,H,S,hd)
@@ -292,21 +300,26 @@ def channel_mix(p, x, x_prev, cfg: ModelConfig, mesh=None):
     r = cm.matmul(xr, cm.cast(p["w_r"], cfg))
     if r.shape[-1] != d:
         r = mesh.gather(r, -1, ("model",))
+    if kv.shape[1] != r.shape[1]:    # w_v's exit kept this rank's rows
+        r = cm.seq_rows(r, mesh)
     return torch.sigmoid(r) * kv, x[:, -1].float()
 
 
 def _layer(pl, x, cfg, pcfg, st, *, sequential: bool, fresh: bool = False,
            mesh=None):
-    """st = (wkv_state, tmix_x, cmix_x) -> (x', st')."""
+    """st = (wkv_state, tmix_x, cmix_x) -> (x', st').  Where the residual
+    is cut over the sequence (training), each mix norms this rank's rows,
+    gathers them over 'model' and keeps its rows of the output (the
+    reference's SP residual spec, ``_residual_spec``)."""
     wkv_state, tx, cx = st
-    h = cm.rms_norm(x, pl["norm1"], cfg.norm_eps)
+    h = cm.seq_join(cm.rms_norm(x, pl["norm1"], cfg.norm_eps), mesh)
     a, tx_new, wkv_state = time_mix(pl["tmix"], h, tx, cfg, pcfg, wkv_state,
                                     sequential=sequential, fresh=fresh,
                                     mesh=mesh)
-    x = x + a
-    h = cm.rms_norm(x, pl["norm2"], cfg.norm_eps)
+    x = x + cm.seq_leave(a, x, mesh)
+    h = cm.seq_join(cm.rms_norm(x, pl["norm2"], cfg.norm_eps), mesh)
     m, cx_new = channel_mix(pl["cmix"], h, cx, cfg, mesh)
-    return x + m, (wkv_state, tx_new, cx_new)
+    return x + cm.seq_leave(m, x, mesh), (wkv_state, tx_new, cx_new)
 
 
 # ----------------------------------------------------------------------------
@@ -314,33 +327,31 @@ def _layer(pl, x, cfg, pcfg, st, *, sequential: bool, fresh: bool = False,
 # ----------------------------------------------------------------------------
 
 
-def _zero_state(cfg, b, device):
-    """One layer's (wkv, tmix_x, cmix_x) zero state, float32."""
-    h = cfg.ssm.n_ssm_heads
-    hd = cfg.d_model // h
-    z = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
-                                   device=device)
-    return z(b, h, hd, hd), z(b, cfg.d_model), z(b, cfg.d_model)
+def _fresh_layer(pl, x, cfg, pcfg, mesh=None):
+    """One layer from zero states (the WKV state's of this rank's
+    layout, `time_mix`), its weights gathered over 'data' here."""
+    z = torch.zeros((x.shape[0], cfg.d_model), dtype=torch.float32,
+                    device=x.device)
+    return _layer(gather_layer(pl, mesh), x, cfg, pcfg, (None, z, z),
+                  sequential=False, fresh=True, mesh=mesh)[0]
 
 
-def _fresh_layer(pl, x, cfg, pcfg):
-    st = _zero_state(cfg, x.shape[0], x.device)
-    return _layer(pl, x, cfg, pcfg, st, sequential=False, fresh=True)[0]
-
-
-def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
+    """tokens -> (hidden (B, S, d), {aux_loss: 0}).  On a mesh (training)
+    as ``transformer.forward``: the heads' or the k-cut layout of
+    `time_mix`, the residual cut over the sequence where
+    ``mesh.seq_parallel``, the hidden states whole on every rank."""
     _check_family(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, mesh)
+    sp = cm.seq_view(mesh, x.shape[1])
+    x = cm.seq_rows(x, sp)
     for i in range(cfg.n_layers):
-        pl = _layer_params(params, i)
-        if pcfg.remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
-                _fresh_layer, pl, x, cfg, pcfg, use_reentrant=False)
-        else:
-            x = _fresh_layer(pl, x, cfg, pcfg)
+        x = remat_call(pcfg, _fresh_layer, _index(params["layers"], i), x,
+                       cfg, pcfg, sp)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+    return cm.seq_join(x, sp), {"aux_loss": torch.zeros(
+        (), dtype=torch.float32, device=x.device)}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -23,10 +23,13 @@ every rank runs the same code on its local shards, with the reference's
 Megatron layout: ``wq/wk/wv`` and ``w_gate/w_up`` column-parallel (this
 rank's heads and columns, whole q heads over their own KV heads, as
 ``attention._group`` lays them out), ``wo`` and ``w_down``
-row-parallel, each followed by one float32 sum over 'model'; the
-residual stream stays whole over 'model' (the reference's
-sequence-parallel residuals are a training layout, not served here).
-Each layer's weights are gathered over 'data' at use (FSDP).  The KV
+row-parallel, each followed by one float32 sum over 'model'; serving
+keeps the residual stream whole over 'model'.  Each layer's weights are
+gathered over 'data' at use (FSDP).  Training (``forward(...,
+mesh=)``) runs the same blocks under autograd, the layer's gathers
+inside its checkpoint, with the reference's sequence-parallel residuals
+where ``mesh.seq_parallel`` (`_dense_layer`) and the vocab-parallel
+loss's head (`vocab_logits`).  The KV
 cache holds this rank's requests and KV heads (`cache_specs`).  Where
 the KV heads (so also where the q heads) do not divide 'model', the
 cache holds every head and this rank's block of positions instead (the
@@ -231,12 +234,18 @@ def _layer(params, i: int, mesh=None, key: str = "layers") -> dict:
     """Layer i of the stack ``params[key]`` (the leading L dim indexed
     away); on a mesh, gathered over 'data' at use (`MeshContext.fsdp`:
     what is left is this rank's tensor-parallel block)."""
-    stack = params[key]
-    pl = _index(stack, i)
+    return gather_layer(_index(params[key], i), mesh, key)
+
+
+def gather_layer(pl, mesh, key: str = "layers") -> dict:
+    """One layer's local shards `pl` of the stack ``key`` gathered over
+    'data' (`MeshContext.fsdp`); `pl` itself without a mesh.  Training
+    calls it inside the layer's checkpoint, so the backward re-issues the
+    gathers (the reference's remat of its FSDP all-gathers)."""
     if mesh is None:
         return pl
     return cm.map_tree(mesh.fsdp, pl, cm.map_tree(
-        lambda spec: spec[1:], {k: mesh.specs[key][k] for k in stack}))
+        lambda spec: spec[1:], {k: mesh.specs[key][k] for k in pl}))
 
 
 def _index(tree, i):
@@ -247,17 +256,33 @@ def _index(tree, i):
 
 def _dense_layer(pl, x, positions, cfg, pcfg, cache=None, mesh=None):
     """One layer: (x', aux_loss) — the MoE router's load-balance loss, or
-    0.0 for a dense FFN."""
-    h = cm.rms_norm(x, pl["norm_attn"], cfg.norm_eps)
-    x = x + attention_block(pl["attn"], h, positions, cfg, pcfg, cache=cache,
-                            mesh=mesh, seq_axes=seq_axes(mesh)
-                            if cache is not None else ())
-    h = cm.rms_norm(x, pl["norm_mlp"], cfg.norm_eps)
+    0.0 for a dense FFN.  Where the residual is cut over the sequence
+    (``mesh.seq_cut``, training): under ``sp_boundary`` "op" each block
+    norms this rank's rows, gathers them over 'model' and reduce-scatters
+    its exit; under "layer" (the reference's explicit schedule) the
+    residual is gathered once at the layer's entry, the attention's exit
+    is an all-reduce and the FFN's a reduce-scatter."""
+    if mesh is not None and mesh.seq_cut and mesh.sp_boundary == "layer":
+        full = cm.seq_join(x, mesh)
+        h = cm.rms_norm(full, pl["norm_attn"], cfg.norm_eps)
+        full = full + attention_block(pl["attn"], h, positions, cfg, pcfg,
+                                      mesh=mesh.view(False))
+        h = cm.rms_norm(full, pl["norm_mlp"], cfg.norm_eps)
+        m, aux = _ffn(pl, h, cfg, pcfg, mesh)
+        return cm.seq_rows(full, mesh) + cm.seq_leave(m, x, mesh), aux
+    h = cm.seq_join(cm.rms_norm(x, pl["norm_attn"], cfg.norm_eps), mesh)
+    x = x + cm.seq_leave(attention_block(
+        pl["attn"], h, positions, cfg, pcfg, cache=cache, mesh=mesh,
+        seq_axes=seq_axes(mesh) if cache is not None else ()), x, mesh)
+    h = cm.seq_join(cm.rms_norm(x, pl["norm_mlp"], cfg.norm_eps), mesh)
+    m, aux = _ffn(pl, h, cfg, pcfg, mesh)
+    return x + cm.seq_leave(m, x, mesh), aux
+
+
+def _ffn(pl, h, cfg, pcfg, mesh):
     if cfg.family == "moe":
-        m, aux = moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg, mesh=mesh)
-    else:
-        m, aux = mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh), 0.0
-    return x + m, aux
+        return moe_mod.moe_ffn(h, pl["moe"], cfg, pcfg, mesh=mesh)
+    return mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh), 0.0
 
 
 # ----------------------------------------------------------------------------
@@ -300,6 +325,32 @@ def logits_fn(params, hidden, cfg, mesh=None):
     return cm.matmul_f32(hidden, w)
 
 
+def vocab_logits(params, hidden, cfg, mesh):
+    """The training loss's logits on a rank of a mesh: (logits (B, C, Vr)
+    float32, the vocabulary id of their first column).  A head cut over
+    'model' gives this rank's vocab columns alone (the vocab-parallel
+    loss reduces over 'model' what it needs, ``train/losses.py``); so
+    does a tied head where 'model' divides the vocabulary: the
+    feature-sharded table is gathered whole over its feature axes (its
+    backward the reduce-scatter of the gradient onto each rank's feature
+    block) and this rank's block of vocab rows taken.  Any other head
+    gives every column (`logits_fn`)."""
+    m = mesh.size(("model",))
+    if cfg.tie_embeddings and m > 1 and cfg.vocab_size % m == 0:
+        feat = cm.entry_axes(mesh.spec("embed.tokens")[1])
+        table = mesh.gather(cm.cast(params["embed"]["tokens"], cfg), 1,
+                            feat)
+        i, _ = mesh.block(("model",))
+        k = cfg.vocab_size // m
+        return cm.matmul_f32(hidden, table[i * k:(i + 1) * k].T), i * k
+    if cfg.tie_embeddings or "model" not in cm.entry_axes(
+            mesh.spec("head.w")[1]):
+        return logits_fn(params, hidden, cfg, mesh), 0
+    w = mesh.fsdp(cm.cast(params["head"]["w"], cfg), mesh.spec("head.w"))
+    i, _ = mesh.block(("model",))
+    return cm.matmul_f32(hidden, w), i * w.shape[-1]
+
+
 # ----------------------------------------------------------------------------
 # forward (train / eval): tokens -> hidden states
 # ----------------------------------------------------------------------------
@@ -314,23 +365,42 @@ def _positions_from_batch(batch, cfg):
     return torch.stack([p, p, p]) if cfg.rope_type == "mrope" else p
 
 
-def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+def remat_call(pcfg: ParallelConfig, fn, *args, **kwargs):
+    """fn(*args, **kwargs), recomputed in the backward (collectives and
+    all) when ``pcfg.remat == "full"``."""
+    if pcfg.remat == "full":
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+    return fn(*args, **kwargs)
+
+
+def _train_layer(pl, x, positions, cfg, pcfg, mesh):
+    return _dense_layer(gather_layer(pl, mesh), x, positions, cfg, pcfg,
+                        mesh=mesh)
+
+
+def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
+    """tokens -> (hidden (B, S, d), {aux_loss}).  On a mesh (training:
+    `params` this rank's shards, `batch` its share over ('pod', 'data')),
+    each layer gathers its weights over 'data' inside its checkpoint; the
+    residual is cut over the sequence where ``mesh.seq_parallel``
+    (`common.seq_view`), and the hidden states come out whole on every
+    rank of 'model'."""
     _check_family(cfg)
     tokens = batch["tokens"]
     positions = _positions_from_batch(batch, cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = cm.seq_view(mesh, x.shape[1])
+    x = cm.seq_rows(x, sp)
     for i in range(cfg.n_layers):
-        pl = _layer(params, i)
-        if pcfg.remat == "full":
-            x, aux_l = torch.utils.checkpoint.checkpoint(
-                _dense_layer, pl, x, positions, cfg, pcfg,
-                use_reentrant=False)
-        else:
-            x, aux_l = _dense_layer(pl, x, positions, cfg, pcfg)
+        x, aux_l = remat_call(pcfg, _train_layer, _index(params["layers"], i),
+                              x, positions, cfg, pcfg, sp)
         aux = aux + aux_l
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x, {"aux_loss": aux}
+    return cm.seq_join(x, sp), {"aux_loss": aux}
 
 
 # ----------------------------------------------------------------------------

@@ -28,7 +28,7 @@ nothing_saveable)`` around its layer scans (under
 projects the cross K/V from the encoder's output, so the encoder's
 gradient gathers from all of them.
 
-On a mesh (``mesh=``, a ``common.MeshContext``; serving only) the
+On a mesh (``mesh=``, a ``common.MeshContext``) the
 encoder's and decoder's self-attention and the cross-attention go
 through `attention_block` with the mesh, the cross K/V projected on the
 rank's KV heads (every head where they do not divide 'model'); the
@@ -39,14 +39,14 @@ partial softmax state over its frames.
 from __future__ import annotations
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (_index, _layer, _whole_heads,
                                             attention_block, cache_block,
-                                            embed_tokens, kv_cache_spec,
-                                            logits_fn, mlp_block, seq_axes)
+                                            embed_tokens, gather_layer,
+                                            kv_cache_spec, logits_fn,
+                                            mlp_block, remat_call, seq_axes)
 
 
 def init(gen, cfg: ModelConfig, device="cuda"):
@@ -58,42 +58,42 @@ def init(gen, cfg: ModelConfig, device="cuda"):
     return cm.init_from_shapes(gen, _param_shapes(cfg), dev)
 
 
-def _layer_call(pcfg: ParallelConfig, fn, *args, **kwargs):
-    """fn(*args, **kwargs), recomputed in the backward when
-    ``pcfg.remat == "full"``."""
-    if pcfg.remat == "full":
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False,
-                                                 **kwargs)
-    return fn(*args, **kwargs)
-
-
 # ----------------------------------------------------------------------------
 # encoder
 # ----------------------------------------------------------------------------
 
 
 def _enc_layer(pl, x, positions, cfg, pcfg, mesh=None):
-    h = cm.layer_norm(x, pl["norm_attn"], cfg.norm_eps)
-    x = x + attention_block(pl["attn"], h, positions, cfg, pcfg,
-                            causal=False, mesh=mesh)
-    h = cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps)
-    return x + mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh)
+    """One encoder layer (`pl`: its shards, gathered over 'data' here);
+    where the residual is cut over the frames (training), each block
+    gathers its normed input over 'model' and keeps its rows."""
+    pl = gather_layer(pl, mesh, "enc")
+    h = cm.seq_join(cm.layer_norm(x, pl["norm_attn"], cfg.norm_eps), mesh)
+    x = x + cm.seq_leave(attention_block(pl["attn"], h, positions, cfg,
+                                         pcfg, causal=False, mesh=mesh),
+                         x, mesh)
+    h = cm.seq_join(cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps), mesh)
+    return x + cm.seq_leave(mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh),
+                            x, mesh)
 
 
 def encode(params, enc_embed, cfg: ModelConfig, pcfg: ParallelConfig,
            mesh=None):
+    """The encoder's output (B, F, d), whole over the frames (on a mesh
+    whose ``seq_parallel`` cuts them, gathered after the final norm)."""
     b, f, d = enc_embed.shape
     x = enc_embed + cm.sinusoidal_positions(
         f, d, device=enc_embed.device)[None].to(enc_embed.dtype)
     dummy_pos = torch.zeros((b, f), dtype=torch.int32,
                             device=enc_embed.device)
-    layers = {"enc": {k: v for k, v in params["enc"].items()
-                      if k != "final_norm"}}
+    layers = {k: v for k, v in params["enc"].items() if k != "final_norm"}
+    sp = cm.seq_view(mesh, f)
+    x = cm.seq_rows(x, sp)
     for i in range(cfg.n_enc_layers):
-        x = _layer_call(pcfg, _enc_layer, _layer(layers, i, mesh, "enc"), x,
-                        dummy_pos, cfg, pcfg, mesh)
-    return cm.layer_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
+        x = remat_call(pcfg, _enc_layer, _index(layers, i), x, dummy_pos,
+                        cfg, pcfg, sp)
+    return cm.seq_join(cm.layer_norm(x, params["enc"]["final_norm"],
+                                     cfg.norm_eps), sp)
 
 
 # ----------------------------------------------------------------------------
@@ -122,20 +122,28 @@ def _dec_layer(pl, x, positions, cfg, pcfg, enc_out=None, cross_kv=None,
                cache=None, mesh=None, cross_axes=()):
     """cache: None | (k_self, v_self, pos, lengths); `cross_axes`: the
     axes `cross_kv` (this rank's block of the cross cache) is cut over
-    along the frames."""
-    h = cm.layer_norm(x, pl["norm_self"], cfg.norm_eps)
-    x = x + attention_block(pl["self_attn"], h, positions, cfg, pcfg,
-                            causal=True, cache=cache, mesh=mesh,
-                            seq_axes=seq_axes(mesh) if cache is not None
-                            else ())
-    h = cm.layer_norm(x, pl["norm_cross"], cfg.norm_eps)
+    along the frames.  Where the residual is cut over the sequence
+    (training), each block gathers its normed input over 'model' and
+    keeps its rows; `enc_out` is whole."""
+    h = cm.seq_join(cm.layer_norm(x, pl["norm_self"], cfg.norm_eps), mesh)
+    x = x + cm.seq_leave(attention_block(
+        pl["self_attn"], h, positions, cfg, pcfg, causal=True, cache=cache,
+        mesh=mesh, seq_axes=seq_axes(mesh) if cache is not None else ()),
+        x, mesh)
+    h = cm.seq_join(cm.layer_norm(x, pl["norm_cross"], cfg.norm_eps), mesh)
     if cross_kv is None:
         cross_kv = _project_cross_kv(pl["cross_attn"], enc_out, cfg, mesh)
-    x = x + attention_block(pl["cross_attn"], h, positions, cfg, pcfg,
-                            causal=False, kv_override=cross_kv, mesh=mesh,
-                            seq_axes=cross_axes)
-    h = cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps)
-    return x + mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh)
+    x = x + cm.seq_leave(attention_block(
+        pl["cross_attn"], h, positions, cfg, pcfg, causal=False,
+        kv_override=cross_kv, mesh=mesh, seq_axes=cross_axes), x, mesh)
+    h = cm.seq_join(cm.layer_norm(x, pl["norm_mlp"], cfg.norm_eps), mesh)
+    return x + cm.seq_leave(mlp_block(pl["mlp"], h, cfg, pcfg, mesh=mesh),
+                            x, mesh)
+
+
+def _train_dec_layer(pl, x, positions, cfg, pcfg, enc_out, mesh):
+    return _dec_layer(gather_layer(pl, mesh, "dec"), x, positions, cfg, pcfg,
+                      enc_out=enc_out, mesh=mesh)
 
 
 def _embed_dec(params, tokens, cfg, offset=0, mesh=None):
@@ -145,18 +153,25 @@ def _embed_dec(params, tokens, cfg, offset=0, mesh=None):
     return x + pos[None].to(x.dtype)
 
 
-def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
-    enc_out = encode(params, batch["enc_embed"], cfg, pcfg)
+def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
+    """(frames, tokens) -> (hidden (B, S, d), {aux_loss: 0}).  On a mesh
+    (training) as ``transformer.forward``, the encoder's and the
+    decoder's residuals each cut over their sequence where
+    ``mesh.seq_parallel``."""
+    enc_out = encode(params, batch["enc_embed"], cfg, pcfg, mesh)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = _embed_dec(params, tokens, cfg)
+    x = _embed_dec(params, tokens, cfg, mesh=mesh)
+    sp = cm.seq_view(mesh, s)
+    x = cm.seq_rows(x, sp)
     for i in range(cfg.n_layers):
-        x = _layer_call(pcfg, _dec_layer, _index(params["dec"], i), x,
-                        positions, cfg, pcfg, enc_out=enc_out)
+        x = remat_call(pcfg, _train_dec_layer, _index(params["dec"], i), x,
+                        positions, cfg, pcfg, enc_out, sp)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+    return cm.seq_join(x, sp), {"aux_loss": torch.zeros(
+        (), dtype=torch.float32, device=x.device)}
 
 
 # ----------------------------------------------------------------------------

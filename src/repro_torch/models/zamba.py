@@ -30,7 +30,7 @@ bodies, at a finer grain (`_run`).  The shared block's weights are read
 at every site, so autograd sums their gradients over the sites.  Serving
 (prefill, decode) has no backward and no remat.
 
-On a mesh (``mesh=``, a ``common.MeshContext``; serving only) every
+On a mesh (``mesh=``, a ``common.MeshContext``) every
 rank runs `mamba2.mamba_block`'s sharded path, on its SSM heads where
 they divide 'model' and on P/M channels of every head where they do
 not (the reference's two layouts of the SSM state), and the shared
@@ -51,10 +51,10 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig, _param_shapes
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2
-from repro_torch.models.transformer import (_layer, attention_block,
+from repro_torch.models.transformer import (_index, _layer, attention_block,
                                             cache_block, embed_tokens,
-                                            kv_cache_spec, logits_fn,
-                                            mlp_block, seq_axes)
+                                            gather_layer, kv_cache_spec,
+                                            logits_fn, mlp_block, seq_axes)
 
 
 def init(gen, cfg: ModelConfig, device="cuda"):
@@ -74,24 +74,31 @@ def _split_groups(cfg: ModelConfig):
 
 
 def _mamba_layer(pl, x, cfg, pcfg, st, *, chunked, mesh=None):
+    """One mamba layer (`pl`: its shards, gathered over 'data' here).
+    Where the residual is cut over the sequence (training), the mixer
+    takes this rank's normed rows gathered over 'model', and the rank
+    keeps its rows of the output."""
+    pl = gather_layer(pl, mesh)
     conv_st, ssm_st = st
-    h = cm.rms_norm(x, pl["norm"], cfg.norm_eps)
+    h = cm.seq_join(cm.rms_norm(x, pl["norm"], cfg.norm_eps), mesh)
     out, conv_new, ssm_new = mamba2.mamba_block(
         pl["mamba"], h, cfg, conv_state=conv_st, ssm_state=ssm_st,
         chunked=chunked, mesh=mesh)
-    return x + out, (conv_new, ssm_new)
+    return x + cm.seq_leave(out, x, mesh), (conv_new, ssm_new)
 
 
 def _shared_block(sq, x, positions, cfg, pcfg, cache=None, mesh=None):
     """Weight-tied attention + MLP block (`sq`: its weights, the leading
-    dim-1 indexed away)."""
-    h = cm.rms_norm(x, sq["norm_attn"], cfg.norm_eps)
-    x = x + attention_block(sq["attn"], h, positions, cfg, pcfg,
-                            causal=True, cache=cache, mesh=mesh,
-                            seq_axes=seq_axes(mesh) if cache is not None
-                            else ())
-    h = cm.rms_norm(x, sq["norm_mlp"], cfg.norm_eps)
-    return x + mlp_block(sq["mlp"], h, cfg, pcfg, mesh=mesh)
+    dim-1 indexed away), the sequence gathered and kept per block as
+    `_mamba_layer`'s where the residual is cut."""
+    h = cm.seq_join(cm.rms_norm(x, sq["norm_attn"], cfg.norm_eps), mesh)
+    x = x + cm.seq_leave(attention_block(
+        sq["attn"], h, positions, cfg, pcfg, causal=True, cache=cache,
+        mesh=mesh, seq_axes=seq_axes(mesh) if cache is not None else ()),
+        x, mesh)
+    h = cm.seq_join(cm.rms_norm(x, sq["norm_mlp"], cfg.norm_eps), mesh)
+    return x + cm.seq_leave(mlp_block(sq["mlp"], h, cfg, pcfg, mesh=mesh),
+                            x, mesh)
 
 
 def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
@@ -105,9 +112,9 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
     shared-block site is recomputed in the backward: finer than the
     reference's group checkpoints, the same values, and one layer's SSD
     tensors held at a time (a group's six did not fit on an 80 GB card
-    at zamba2-7b's width and 4 x 2048 tokens).  On a mesh (serving
-    only) each layer's weights are gathered over 'data' at use, the
-    shared block's once per call."""
+    at zamba2-7b's width and 4 x 2048 tokens).  On a mesh each mamba
+    layer's weights are gathered over 'data' at use (inside its
+    checkpoint in training), the shared block's once per call."""
     ae = cfg.attn_every
     if cache is None and pcfg.remat == "full":
         call = functools.partial(torch.utils.checkpoint.checkpoint,
@@ -118,8 +125,8 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
     for i in range(cfg.n_layers):
         st = ((None, None) if cache is None
               else (cache["conv"][i], cache["ssm"][i]))
-        x, (conv, ssm) = call(_mamba_layer, _layer(params, i, mesh), x, cfg,
-                              pcfg, st, chunked=chunked, mesh=mesh)
+        x, (conv, ssm) = call(_mamba_layer, _index(params["layers"], i), x,
+                              cfg, pcfg, st, chunked=chunked, mesh=mesh)
         if cache is not None:
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
@@ -132,15 +139,22 @@ def _run(params, x, positions, cfg, pcfg, cache=None, lengths=None, *,
     return x
 
 
-def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+def forward(params, batch, cfg: ModelConfig, pcfg: ParallelConfig,
+            mesh=None):
+    """tokens -> (hidden (B, S, d), {aux_loss: 0}).  On a mesh (training)
+    as ``transformer.forward``: `mamba2.mamba_block`'s heads or P-cut
+    layout, the residual cut over the sequence where
+    ``mesh.seq_parallel``, the hidden states whole on every rank."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = embed_tokens(params, tokens, cfg)
-    x = _run(params, x, positions, cfg, pcfg, chunked=True)
+    x = embed_tokens(params, tokens, cfg, mesh)
+    sp = cm.seq_view(mesh, s)
+    x = _run(params, cm.seq_rows(x, sp), positions, cfg, pcfg, chunked=True,
+             mesh=sp)
     x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+    return cm.seq_join(x, sp), {"aux_loss": torch.zeros(
+        (), dtype=torch.float32, device=x.device)}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -74,9 +74,7 @@ def batch_dp_axes(policy: str) -> tuple[str, ...]:
 
 def param_specs(cfg: ModelConfig, policy: str, mesh) -> dict:
     """The filtered specs of `cfg`'s params on `mesh` under `policy`."""
-    shapes = cm.unflatten_paths({k: torch.empty(s, device="meta") for k, s
-                                 in _param_shapes(cfg).items()})
-    specs = part.param_specs(shapes, mesh)
+    specs = part.config_specs(cfg, mesh)
     return _slr_param_specs(specs) if policy == "slr" else specs
 
 

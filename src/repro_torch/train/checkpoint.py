@@ -17,10 +17,16 @@ is the path with ``/`` -> ``__`` plus ``.npy``.
 * **async**   — `AsyncSaver` copies the state to the host on the caller's
   thread and writes the files on a background thread.
 * **bounded** — keep_last prunes old steps.
-
-The reference's elastic reshard on restore (``mesh``/``shardings``) waits
-for Slice F3 (ROADMAP): here every leaf is restored onto its template
-leaf's device and dtype.
+* **sharded** — a state of a sharded step (each rank its shards under
+  the param rules, ``train/step.py``) is saved with ``mesh=`` and the
+  params' ``specs=``: every rank takes part in gathering each leaf whole
+  (`gather_whole`, over the axes its spec cuts), and rank 0 writes the
+  full logical arrays, the reference's format.
+* **elastic** — ``restore(..., mesh=)`` gives each rank its block of
+  every leaf under the target mesh's specs (the partition rules on the
+  leaf's full shape from the manifest), whatever mesh wrote it: the
+  reference's reshard on restore.  Without a mesh every leaf is restored
+  whole onto its template leaf's device and dtype.
 """
 from __future__ import annotations
 
@@ -80,7 +86,63 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(state, step: int, directory: str, keep_last: int = 3) -> str:
+def _param_path(name: str) -> Optional[str]:
+    """The dotted param path of checkpoint leaf `name` (params and AdamW's
+    m and v alike); None for the step."""
+    for prefix in (".params/", ".opt/.m/", ".opt/.v/"):
+        if name.startswith(prefix):
+            return name[len(prefix):].replace("/", ".")
+    return None
+
+
+def leaf_spec(name: str, shape, mesh) -> tuple:
+    """The filtered spec of checkpoint leaf `name` (of full `shape`) on
+    `mesh`: the param rules for params and AdamW's m and v, replicated
+    for the step (``core/partitioning.py``)."""
+    from repro_torch.core import partitioning as part
+    path = _param_path(name)
+    if path is None:
+        return ()
+    return part.filter_spec(part.spec_for_param(path, len(shape)),
+                            tuple(shape), mesh)
+
+
+def gather_whole(state, mesh, specs):
+    """The whole state from this rank's shards: each leaf of a sharded
+    state (`specs`: the params' spec tree, which m and v share) gathered
+    over the axes its spec cuts (``MeshContext.gather``).  Every rank of
+    `mesh` must call it; every rank gets the whole state."""
+    from repro_torch.models.common import MeshContext, entry_axes, get_path
+    ctx = MeshContext(mesh, specs)
+
+    def whole(name, leaf):
+        path = _param_path(name)
+        for d, entry in enumerate(() if path is None
+                                  else get_path(specs, path)):
+            if entry_axes(entry):
+                leaf = ctx.gather(leaf, d, entry_axes(entry))
+        return leaf
+
+    return _rebuild(state, whole)
+
+
+def _writer(mesh) -> bool:
+    import torch.distributed as dist
+    return mesh is None or dist.get_rank() == 0
+
+
+def save(state, step: int, directory: str, keep_last: int = 3, *,
+         mesh=None, specs=None) -> str:
+    """Write `state` as step `step` (atomically); with `mesh` (and the
+    params' `specs`), a sharded state gathered whole and written by rank
+    0 (`gather_whole`), every rank returning once it is on disk."""
+    if mesh is not None:
+        import torch.distributed as dist
+        whole = gather_whole(state, mesh, specs)
+        path = (save(whole, step, directory, keep_last) if _writer(mesh)
+                else os.path.join(directory, f"step_{step:08d}"))
+        dist.barrier()           # written before any rank reads it back
+        return path
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -109,7 +171,12 @@ class AsyncSaver:
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
 
-    def save(self, state, step: int, directory: str, keep_last: int = 3):
+    def save(self, state, step: int, directory: str, keep_last: int = 3,
+             *, mesh=None, specs=None):
+        if mesh is not None:
+            state = gather_whole(state, mesh, specs)
+            if not _writer(mesh):
+                return
         snapshot = _rebuild(state, lambda _, leaf: _to_numpy(leaf))
         self.wait()
         self._thread = threading.Thread(
@@ -134,10 +201,13 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(state_template, directory: str, step: Optional[int] = None):
+def restore(state_template, directory: str, step: Optional[int] = None, *,
+            mesh=None):
     """Rebuild `state_template`'s tree from disk (the latest step unless
     `step` is given): each leaf a tensor on its template leaf's device,
-    in its dtype.  A shape that differs from the template's raises."""
+    in its dtype.  With `mesh`, `state_template` holds this rank's shards
+    and each leaf is its block under `leaf_spec` on `mesh` (the elastic
+    reshard).  A shape that differs from the template's raises."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -149,11 +219,15 @@ def restore(state_template, directory: str, step: Optional[int] = None):
     def load(name, tmpl):
         meta = manifest["leaves"][name]
         arr = np.load(os.path.join(d, meta["file"]))
+        if mesh is not None:
+            from repro_torch.core.partitioning import local_shard
+            arr = local_shard(torch.from_numpy(arr),
+                              leaf_spec(name, arr.shape, mesh), mesh)
         if list(arr.shape) != list(tmpl.shape):
             raise ValueError(f"{name}: ckpt shape {arr.shape} != "
                              f"template {tuple(tmpl.shape)}")
-        return torch.from_numpy(arr).to(device=tmpl.device,
-                                        dtype=tmpl.dtype)
+        return torch.as_tensor(arr).to(device=tmpl.device, dtype=tmpl.dtype,
+                                       copy=True)
 
     return _rebuild(state_template, load)
 

@@ -50,10 +50,16 @@ class StragglerWatchdog:
 
 
 def train(state, train_step: Callable, data, lcfg: LoopConfig,
-          shard_batch: Callable = lambda b: b, log: Callable = print):
+          shard_batch: Callable = lambda b: b, log: Callable = print, *,
+          mesh=None, specs=None):
     """Runs to lcfg.total_steps from state.step (resume-aware).  Returns
     (state, {"losses", "step_s", "straggler_events"}): one loss and one
-    wall time (the watchdog's clock, seconds) per step taken."""
+    wall time (the watchdog's clock, seconds) per step taken.
+    `shard_batch` maps each global batch to this rank's share (the
+    reference's; ``collectives.local_batch`` on a mesh).  A sharded
+    state's checkpoints take the mesh and the params' `specs`: every
+    rank calls the save (it gathers each leaf), rank 0 writes
+    (``checkpoint.save``)."""
     saver = ckpt.AsyncSaver()
     watchdog = StragglerWatchdog(lcfg.straggler_factor, lcfg.ewma_alpha)
     start = int(state.step)
@@ -85,12 +91,13 @@ def train(state, train_step: Callable, data, lcfg: LoopConfig,
                     f"gnorm {float(metrics.get('grad_norm', 0)):7.3f} "
                     f"dt {dt*1e3:7.1f}ms{'  [STRAGGLER]' if slow else ''}")
             if lcfg.ckpt_dir and (step + 1) % lcfg.ckpt_every == 0:
-                saver.save(state, step + 1, lcfg.ckpt_dir, lcfg.keep_last)
+                saver.save(state, step + 1, lcfg.ckpt_dir, lcfg.keep_last,
+                           mesh=mesh, specs=specs)
             if preempted["flag"]:
                 log(f"preemption signal at step {step}: saving + exiting")
                 saver.wait()
                 ckpt.save(state, step + 1, lcfg.ckpt_dir or ".",
-                          lcfg.keep_last)
+                          lcfg.keep_last, mesh=mesh, specs=specs)
                 break
         saver.wait()
     finally:

@@ -3,11 +3,13 @@
 float32 tensors, with the reference's formulas in its order (bias
 correction with ``step + 1``; decoupled decay added to the update before
 the learning rate scales it).  ``torch.optim.AdamW`` orders the
-operations differently and is not used.  The reference's sharding of m/v
-(ZeRO-3 over the 'data' axis) waits for Slice F3 (ROADMAP); on one
-card, and replicated on every rank of a 'pod' mesh, they are plain
-tensors beside the params.  Updates are functional: new tensors, the
-inputs unchanged."""
+operations differently and is not used.  Every operation is elementwise,
+so AdamW runs unchanged on a rank's shards: with the sharded step
+(``train/step.py``) m and v are cut as the params are (ZeRO-3 over
+'data', the tensor-parallel blocks over 'model'), each rank updating
+its own blocks; on one card, and on every rank of a 'pod' mesh, they
+are the whole tensors beside the params.  Updates are functional: new
+tensors, the inputs unchanged."""
 from __future__ import annotations
 
 import dataclasses

@@ -290,14 +290,17 @@ def test_placements_on_device_mesh(runs):
 
 
 def test_local_batch_cuts_over_pod(runs):
-    """`local_batch` on the (2, 4) mesh: pod rank g takes rows 2g, 2g+1
+    """`local_batch` on the (2, 4) ('data', 'pod') mesh cuts the batch
+    over ('pod', 'data'), 'pod' major, as the reference's batch specs
+    do: the rank at pod g and data j (world rank 4j + g) takes row 2g + j
     of tokens and of positions' dim 1."""
     _, ranks = runs
     tokens = np.arange(24).reshape(8, 3)
     positions = np.arange(72).reshape(3, 8, 3)
-    for r in ranks:
-        g = int(r["rank4"])
+    for i, r in enumerate(ranks):
+        g, j = int(r["rank4"]), i // 4
+        row = 2 * g + j
         np.testing.assert_array_equal(r["local_tokens"],
-                                      tokens[2 * g:2 * g + 2])
+                                      tokens[row:row + 1])
         np.testing.assert_array_equal(r["local_positions"],
-                                      positions[:, 2 * g:2 * g + 2])
+                                      positions[:, row:row + 1])

@@ -241,12 +241,20 @@ def test_remat_full_equals_none():
 
 
 def test_mesh_raises():
-    """A mesh with 'data' or 'model' > 1 (FSDP, TP) waits for Slice F3;
-    pod-only meshes train (tests/test_torch_train_pod.py)."""
+    """A mesh with 'data' or 'model' > 1 builds the sharded step (FSDP,
+    TP; trained in tests/test_torch_train_mesh*.py): its ``MeshContext``
+    holds the params' specs and cuts the batch over ('pod', 'data').
+    Without a process group (a `MeshShape`: no ranks) it raises."""
+    import torch_dist
     from repro_torch.launch.mesh import make_test_mesh
     _, cfg = _cfgs("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="Slice F3"):
+    with pytest.raises(ValueError, match="no process group"):
         make_train_step(cfg, PCFG, mesh=make_test_mesh((2, 2)))
+    with torch_dist.fake_mesh((2, 2), 0) as mesh:
+        step = make_train_step(cfg, PCFG, mesh=mesh)
+        assert step.ctx.sizes == {"data": 2, "model": 2}
+        assert step.ctx.batch_axes == ("data",)
+        assert step.ctx.spec("layers.attn.wq") == (None, "data", "model")
 
 
 def test_forward_remat_keeps_serving_path():

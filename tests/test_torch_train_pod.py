@@ -147,13 +147,23 @@ def test_ranks_hold_the_same_state(runs):
 
 
 def test_mesh_with_data_or_model_axis_raises():
+    """A mesh with 'data' or 'model' > 1 takes the sharded step: without a
+    process group (a `MeshShape`) it raises the error of
+    `test_pod_mesh_without_process_group_raises`; on a process group
+    (one rank of torch's fake backend) it builds, its batch cut over the
+    ('pod', 'data') axes of size > 1."""
     cfg = torch_dist.pod_cfg()
     for shape, axes in (((2, 2), ("data", "model")),
                         ((2, 4), ("pod", "data")),
                         ((2, 1, 2), ("pod", "data", "model"))):
-        with pytest.raises(NotImplementedError, match="F3"):
+        with pytest.raises(ValueError, match="no process group"):
             make_train_step(cfg, ParallelConfig(),
                             mesh=mesh_mod.make_test_mesh(shape, axes))
+        with torch_dist.fake_mesh(shape, 0, axes) as mesh:
+            step = make_train_step(cfg, ParallelConfig(), mesh=mesh)
+            assert step.ctx.sizes == dict(zip(axes, shape))
+            assert step.ctx.batch_axes == tuple(
+                a for a, n in zip(axes, shape) if a != "model" and n > 1)
 
 
 def test_pod_mesh_without_process_group_raises():

@@ -1,7 +1,8 @@
 """Helpers of the port's distributed CPU tests: `spawn` runs a rank body in
 n processes of one gloo process group, and the rank bodies of
-``test_torch_collectives.py``, ``test_torch_train_pod.py`` and
-``test_torch_serve_mesh.py`` live here.
+``test_torch_collectives.py``, ``test_torch_train_pod.py``,
+``test_torch_serve_mesh*.py`` and ``test_torch_train_mesh*.py`` live
+here.
 Imports torch, numpy and ``repro_torch`` only: the ranks never load JAX.
 
 Every rank body takes (rank, n, *args) and returns a dict of numpy
@@ -553,5 +554,200 @@ def serve_families_rank(rank: int, n: int, ref_path: str) -> dict:
         record(f"long|{arch}", torch.cat(toks, 1), logits, steps)
         out[f"long|{arch}|rows"] = np.arange(1)
         out[f"long|{arch}|k_block"] = np.array(cache["k"].shape)
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# test_torch_train_mesh
+# ----------------------------------------------------------------------------
+
+#: (label, mesh shape, axes, seq_shard_activations, sp_boundary,
+#: cross_pod_sync) of the sharded tinyllama steps
+MESH_CASES = (
+    ("sp", (2, 2), ("data", "model"), True, "op", "cascaded"),
+    ("nosp", (2, 2), ("data", "model"), False, "op", "cascaded"),
+    ("layer", (2, 2), ("data", "model"), True, "layer", "cascaded"),
+    ("pod_cascaded", (2, 1, 2), ("pod", "data", "model"), True, "op",
+     "cascaded"),
+    ("pod_dedicated", (2, 1, 2), ("pod", "data", "model"), True, "op",
+     "dedicated"),
+)
+MESH_LR = 1e-3
+#: the meshes the (2, 2) checkpoint is restored onto
+RESTORE_SHAPES = ((4, 1), (1, 4))
+#: (label, arch, dtype): one sharded step on (2, 2) each, its CommLog
+#: held to ``collective_schedules.train_step_comm``: bfloat16 (float32
+#: weight gathers, the activations in the compute dtype) and a tied head
+#: cut over 'model' by vocab
+COMM_CASES = (("bf16", "tinyllama-1.1b", "bfloat16"),
+              ("tied", "qwen3-0.6b", "float32"))
+
+
+def _run_steps(cfg, pcfg, mesh, init, batch, lr, out, key):
+    """Two steps of the sharded step from the whole `init` state on this
+    rank's share of `batch`: per step loss, grad norm and lr; AdamW's m
+    after the first step and the state after the second (this rank's
+    shards, ``checkpoint._flatten`` names, '/' as '~'); the step's
+    CommLog.  Returns (state, step)."""
+    from repro_torch.convert import state_from_reference
+    from repro_torch.core.collectives import local_batch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import make_train_step, shard_state
+
+    step = make_train_step(cfg, pcfg, mesh=mesh, lr=lr)
+    state = shard_state(state_from_reference(init, cfg), mesh)
+    local = local_batch({k: torch.from_numpy(v) for k, v in batch.items()},
+                        mesh)
+    ms = []
+    for i in range(2):
+        state, m = step(state, local)
+        ms.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        if i == 0:
+            for name, v in ckpt._flatten(state.opt.m).items():
+                out[f"{key}|m1|{name.replace('/', '~')}"] = _np(v)
+    out[f"{key}|metrics"] = np.array(ms)
+    out[f"{key}|comm"] = np.array([step.ctx.log.ops,
+                                   step.ctx.log.wire_bytes])
+    for name, v in ckpt._flatten(state).items():
+        out[f"{key}|{name.replace('/', '~')}"] = _np(v)
+    return state, step
+
+
+def train_mesh_rank(rank: int, n: int, ref_path: str, ckpt_dir: str) -> dict:
+    """4 ranks: reduced tinyllama-1.1b (float32) from the reference's
+    initial state, two sharded steps in each of MESH_CASES on the
+    reference's global batch; the global norm of the sharded params
+    against the whole tree's; the "sp" case's state saved from (2, 2)
+    and restored onto each of RESTORE_SHAPES."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.convert import state_from_reference
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.losses import global_norm
+    from repro_torch.train.step import shard_state
+
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    cfg = pod_cfg()
+    init = {k[len("init"):].replace("~", "/"): v for k, v in ref.items()
+            if k.startswith("init")}
+    batch = {"tokens": ref["tokens"], "labels": ref["labels"]}
+    out = {}
+    for label, shape, axes, sp, bound, sync in MESH_CASES:
+        mesh = make_test_mesh(shape, axes, device_type="cpu")
+        pcfg = ParallelConfig(moe_impl="dense", remat="full",
+                              cross_pod_sync=sync, seq_shard_activations=sp,
+                              sp_boundary=bound)
+        state, step = _run_steps(cfg, pcfg, mesh, init, batch, MESH_LR, out,
+                                 label)
+        if label != "sp":
+            continue
+        whole = ckpt.gather_whole(state, mesh, step.ctx.specs)
+        out["norm_sharded"] = _np(global_norm(state.params, step.ctx,
+                                              step.ctx.specs))
+        out["norm_whole"] = _np(global_norm(whole.params))
+        ckpt.save(state, 2, ckpt_dir, mesh=mesh, specs=step.ctx.specs)
+        for shape2 in RESTORE_SHAPES:
+            mesh2 = make_test_mesh(shape2, ("data", "model"),
+                                   device_type="cpu")
+            tmpl = shard_state(state_from_reference(init, cfg), mesh2)
+            got = ckpt.restore(tmpl, ckpt_dir, mesh=mesh2)
+            for name, v in ckpt._flatten(got).items():
+                key = f"restore{shape2[0]}x{shape2[1]}|{name.replace('/', '~')}"
+                out[key] = _np(v)
+    _comm_cases(out)
+    return out
+
+
+def _comm_cases(out: dict) -> None:
+    """One step of each of COMM_CASES from ``init_state(0)`` on a (2, 2)
+    mesh; its CommLog's calls and wire bytes."""
+    from repro_torch.configs import ParallelConfig, get_config, reduce_config
+    from repro_torch.core.collectives import local_batch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.train.step import init_state, make_train_step, shard_state
+
+    mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+    for label, arch, dtype in COMM_CASES:
+        cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                                  dtype=dtype)
+        step = make_train_step(cfg, ParallelConfig(remat="full"), mesh=mesh,
+                               lr=MESH_LR)
+        state = shard_state(init_state(0, cfg, device="cpu"), mesh)
+        step(state, local_batch(make_batch(0, cfg, 8, 32), mesh))
+        out[f"{label}|comm"] = np.array([step.ctx.log.ops,
+                                         step.ctx.log.wire_bytes])
+
+
+# ----------------------------------------------------------------------------
+# test_torch_train_mesh_families
+# ----------------------------------------------------------------------------
+
+#: (name, arch, overrides, mesh shape (('data', 'model')), batch, seq):
+#: every family on (2, 2), RWKV-6's k-cut WKV state and Mamba2's P-cut
+#: SSM state on (1, 4) (the reduced 2 heads over 'model' 4); granite-moe
+#: at one row of 16 tokens per 'data' rank, so every expert's buffer
+#: takes all t x k assignments (nothing is dropped)
+TRAIN_FAMILY_CASES = (
+    ("granite-moe", "granite-moe-3b-a800m", {}, (2, 2), 2, 16),
+    ("qwen2-vl", "qwen2-vl-72b", {}, (2, 2), 4, 16),
+    ("rwkv6", "rwkv6-3b", {}, (2, 2), 4, 16),
+    ("rwkv6-kcut", "rwkv6-3b", {}, (1, 4), 4, 16),
+    ("zamba2", "zamba2-7b", {}, (2, 2), 4, 16),
+    ("zamba2-pcut", "zamba2-7b", {}, (1, 4), 4, 16),
+    ("whisper", "whisper-base", {}, (2, 2), 4, 16),
+)
+FAMILY_LR = 1e-3
+
+
+def train_family_cfg(arch: str, overrides: dict):
+    """Reduced `arch` in float32 with `overrides`; granite-moe the
+    expert-parallel tests' `ep_cfg`."""
+    cfg = ep_cfg() if arch == "granite-moe-3b-a800m" else serve_cfg(arch)
+    return with_overrides(cfg, overrides)
+
+
+def train_family_batch(cfg, b: int, s: int) -> dict:
+    """``models.make_batch(0, cfg, b, s)`` as numpy (the single-process
+    train tests' draws: tokens, labels, whisper's frame embeddings), the
+    VLM's (3, B, S) M-RoPE positions three distinct streams offset per
+    request, so a cut on the wrong dim would show."""
+    from repro_torch.models import make_batch
+    out = {k: v.numpy() for k, v in make_batch(0, cfg, b, s).items()}
+    if cfg.family == "vlm":
+        t = np.arange(s, dtype=np.int32)
+        streams = np.stack([t, t // 2, t % 4])[:, None, :]
+        out["positions"] = (streams + 3 * np.arange(
+            b, dtype=np.int32)[None, :, None]).astype(np.int32)
+    return out
+
+
+def train_families_rank(rank: int, n: int, ref_path: str) -> dict:
+    """4 ranks: each of TRAIN_FAMILY_CASES from the reference's initial
+    state (``<name>|init~...`` in `ref_path`), two sharded steps with
+    sequence parallelism on and off (attn_impl "pallas": the kernels'
+    plain versions; experts over 'model'); the seconds of the rank's
+    work."""
+    import time
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    out = {}
+    for name, arch, ov, shape, b, s in TRAIN_FAMILY_CASES:
+        cfg = train_family_cfg(arch, ov)
+        init = {k[len(name) + 5:].replace("~", "/"): v
+                for k, v in ref.items() if k.startswith(f"{name}|init")}
+        mesh = make_test_mesh(shape, ("data", "model"), device_type="cpu")
+        for sp in (True, False):
+            pcfg = ParallelConfig(attn_impl="pallas", moe_impl="shard_map",
+                                  remat="full", seq_shard_activations=sp)
+            _run_steps(cfg, pcfg, mesh, init, train_family_batch(cfg, b, s),
+                       FAMILY_LR, out, f"{name}|{'sp' if sp else 'nosp'}")
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     return out
